@@ -1,0 +1,163 @@
+"""The port's affinity kernels against the JAX reference.
+
+On the CPU the port's wrappers run the plain PyTorch versions; they must
+equal the reference's float32 ``ref`` backend bit for bit on the whole
+(valid, score, winner) triple — every comparison here is exact, no
+tolerance — and the float64 numpy twin on (valid, winner) where memories lie
+on the 0.25 grid.  The CUDA kernels themselves are held to the plain
+versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.affinity import affinity_valid_np as ref_affinity_valid_np
+from repro.kernels.affinity import bulk_decide_np as ref_bulk_decide_np
+from repro_torch.kernels.affinity import (
+    NO_CAP,
+    NO_CONC,
+    affinity_valid,
+    affinity_valid_np,
+    bulk_decide,
+    bulk_decide_np,
+)
+from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref
+from repro_torch.kernels.affinity.ops import as_inputs
+from repro_torch.kernels.affinity.ref import affinity_valid_ref
+from tests.test_bulk_kernels import SHAPES, _case
+
+pytest.importorskip("hypothesis")
+from hypothesis import given, settings, strategies as hyp_st  # noqa: E402
+
+# the port's own tile edges: 256 workers per block, 8 rows per block, 32
+# tags per mask word — plus the reference's 128-wide Pallas tiles
+PORT_SHAPES = SHAPES + [(257, 33, 9), (255, 32, 8), (513, 64, 17)]
+
+
+def _assert_bits_equal(a, b):
+    """Exact equality, float scores compared by their bit patterns."""
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.dtype == np.float32:
+        a, b = a.view(np.uint32), b.view(np.uint32)
+    np.testing.assert_array_equal(a, b)
+
+
+def _check_against_ref(args):
+    v_ref, s_ref, w_ref = ref_bulk_decide_np(*args, backend="ref")
+    v, s, w = bulk_decide_np(*args, device="cpu")
+    _assert_bits_equal(v, np.asarray(v_ref))
+    _assert_bits_equal(s, np.asarray(s_ref))
+    _assert_bits_equal(w, np.asarray(w_ref))
+    valid = affinity_valid_np(*args[:9], device="cpu")
+    _assert_bits_equal(valid, np.asarray(
+        ref_affinity_valid_np(*args[:9], backend="ref")))
+    _assert_bits_equal(valid, v)
+
+
+@pytest.mark.parametrize("W,T,R", PORT_SHAPES)
+def test_plain_versions_equal_reference_ref_bit_for_bit(W, T, R):
+    _check_against_ref(_case(W, T, R, seed=W * 100003 + T * 101 + R))
+
+
+@pytest.mark.parametrize("W,T,R", PORT_SHAPES)
+def test_plain_versions_equal_numpy_twin_on_the_quarter_grid(W, T, R):
+    """The float64 twin agrees on validity and winners (0.25-grid memories
+    are exact in both widths)."""
+    args = _case(W, T, R, seed=W * 7 + T * 13 + R)
+    v_np, _s_np, w_np = ref_bulk_decide_np(*args, backend="np")
+    v, _s, w = bulk_decide_np(*args, device="cpu")
+    np.testing.assert_array_equal(v, v_np)
+    np.testing.assert_array_equal(w, np.asarray(w_np))
+    # the port's own np backend is the same twin
+    v2, s2, w2 = bulk_decide_np(*args, backend="np")
+    np.testing.assert_array_equal(v2, v_np)
+    np.testing.assert_array_equal(np.asarray(w2), np.asarray(w_np))
+
+
+def test_plain_versions_equal_pallas_interpret_mode():
+    """(130, 5, 257) straddles every Pallas tile edge at once."""
+    args = _case(130, 5, 257, seed=130 * 100003 + 5 * 101 + 257)
+    v_pl, s_pl, w_pl = ref_bulk_decide_np(*args, backend="pallas")
+    v, s, w = bulk_decide_np(*args, device="cpu")
+    _assert_bits_equal(v, np.asarray(v_pl))
+    _assert_bits_equal(s, np.asarray(s_pl))
+    _assert_bits_equal(w, np.asarray(w_pl))
+
+
+def test_all_tied_rows_pick_the_lowest_index_and_dead_rows_minus_one():
+    W, T = 300, 3
+    occ = np.zeros((W, T), np.int32)
+    aff = np.zeros((4, T), np.int8)
+    wmask = np.ones((4, W), bool)
+    wmask[1, :17] = False  # tie among the rest: the first unmasked wins
+    wmask[2] = False  # nothing valid: -1
+    wmask[3, :] = False
+    wmask[3, 299] = True  # the last worker alone
+    mem = np.zeros(W, np.float32)
+    maxm = np.full(W, 8.0, np.float32)
+    nfn = np.zeros(W, np.int32)
+    fmem = np.ones(4, np.float32)
+    strat = np.array([0, 1, 2, 3], np.int32)
+    args = (occ, aff, wmask, mem, maxm, nfn, fmem, None, None, strat, None)
+    _v, _s, w = bulk_decide_np(*args, device="cpu")
+    assert w.tolist() == [0, 17, -1, 299]
+    _v, _s, w_ref = ref_bulk_decide_np(*args, backend="ref")
+    assert np.asarray(w_ref).tolist() == w.tolist()
+
+
+def test_empty_worker_axis_has_no_winner():
+    args = _case(1, 2, 3, seed=0)
+    args = (args[0][:0], args[1], args[2][:, :0], args[3][:0], args[4][:0],
+            args[5][:0]) + args[6:10] + (args[10][:, :0],)
+    v, s, w = bulk_decide_np(*args, device="cpu")
+    assert v.shape == (3, 0) and s.shape == (3, 0)
+    assert w.tolist() == [-1, -1, -1]
+
+
+def test_constants_lock_step_with_the_reference():
+    """The port restates bulk_ref's float32 constants (the reference module
+    imports jax) and copies bulk_np/ref_np verbatim."""
+    from repro.kernels.affinity import bulk_np as ref_bulk_np
+    from repro.kernels.affinity import bulk_ref as ref_bulk_ref
+    from repro.kernels.affinity import ref_np as ref_ref_np
+    from repro_torch.kernels.affinity import bulk_np, bulk_ref, ref_np
+
+    assert bulk_ref.WARMEST_BASE_F32 == ref_bulk_ref.WARMEST_BASE_F32 == 2**22
+    assert bulk_ref.MIN_COST_LIFE_F32 == ref_bulk_ref.MIN_COST_LIFE_F32 \
+        == (10, 2, 0)
+    assert bulk_ref.MIN_COST_LOAD_CLAMP == ref_bulk_ref.MIN_COST_LOAD_CLAMP \
+        == 2**24 - 16
+    assert bulk_ref.F32_EXACT == ref_bulk_ref.F32_EXACT
+    for name in ("STRATEGY_CODES", "LIFECYCLE_S", "CONGESTION_S",
+                 "WARMEST_BASE", "STRAT_BEST_FIRST", "STRAT_LEAST_LOADED",
+                 "STRAT_WARMEST", "STRAT_MIN_COST"):
+        assert getattr(bulk_np, name) == getattr(ref_bulk_np, name), name
+    assert (ref_np.NO_CAP, ref_np.NO_CONC) == (ref_ref_np.NO_CAP,
+                                               ref_ref_np.NO_CONC)
+    assert (NO_CAP, NO_CONC) == (ref_np.NO_CAP, ref_np.NO_CONC)
+
+
+def test_tensor_wrappers_route_cpu_tensors_to_the_plain_versions():
+    args = _case(37, 19, 23, seed=5)
+    ins = as_inputs(*args[:9], torch.device("cpu"))
+    assert torch.equal(affinity_valid(*ins), affinity_valid_ref(*ins))
+    got = bulk_decide(*ins, args[9], args[10])
+    want = bulk_decide_ref(*ins, torch.from_numpy(args[9]),
+                           torch.from_numpy(args[10]))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@settings(max_examples=25, deadline=None)
+@given(hyp_st.integers(0, 2**31 - 1), hyp_st.sampled_from([128, 256, 512]),
+       hyp_st.integers(-1, 1), hyp_st.sampled_from([32, 128]),
+       hyp_st.integers(-1, 1), hyp_st.sampled_from([8, 16]),
+       hyp_st.integers(-1, 1))
+def test_tile_edge_property(seed, w_edge, dW, t_edge, dT, r_edge, dR):
+    """Shapes jittered around both machines' tile edges (Pallas 128-wide
+    tiles; the CUDA kernels' 256-worker blocks, 8-row blocks and 32-tag
+    words): the plain versions stay bit-identical to the reference."""
+    _check_against_ref(_case(max(1, w_edge + dW), max(1, t_edge + dT),
+                             max(1, r_edge + dR), seed))
+
