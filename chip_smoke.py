@@ -6,13 +6,17 @@
 Phases, one line each (every time beside the card's name and power limit):
 
 1. card   — ``nvidia-smi`` name and power limit; fails without CUDA;
-2. build  — both affinity kernels from ``src/repro_torch/kernels/affinity/
-   csrc/*.cu`` with ``nvcc``, in parallel;
-3. kernels vs plain — each CUDA kernel against its plain PyTorch version on
-   the card, bit for bit, at tile-edge shapes and at the main path's shapes,
-   with rows that are all tied (the lowest index must win) and rows with no
-   valid worker (``-1``);
-4. main path — the port's ``Platform`` on the reference scheduler-scale rig
+2. build  — the three kernels from ``src/repro_torch/kernels/*/csrc/*.cu``
+   with ``nvcc``, one process per source, in parallel;
+3. kernels vs plain — each affinity kernel against its plain PyTorch version
+   on the card, bit for bit, at tile-edge shapes and at the main path's
+   shapes, with rows that are all tied (the lowest index must win) and rows
+   with no valid worker (``-1``); the flash-attention kernel against its
+   plain version in float32 (within 2e-5) and bfloat16 (within 5e-2) at
+   ragged lengths, Sq != Skv, GQA ratios 1, 2, 4, head dims 64, 128, 256,
+   window 1 and a window past the sequence, causal with a window at
+   Sq != Skv;
+4. decision path — the port's ``Platform`` on the reference scheduler-scale rig
    (16384 workers of 64 MB, 50% pre-occupied, 5% sparse warm residency):
    512 ``decide()`` calls, ``decide_batch`` waves of 512 with
    ``apply=False``, one ``apply=True`` wave.  The decisions must equal the
@@ -20,12 +24,31 @@ Phases, one line each (every time beside the card's name and power limit):
    counters must have moved.  Then each kernel against its plain version
    on the card, bit for bit, on the inputs the main path gives it (every
    function's per-arrival rows, a wave's rows) from the live session;
-5. times — each kernel's CUDA-event time at the main path's shapes and at
-   the 512-tag, 512-row scale, its profiler device time, its plain
+5. times — each affinity kernel's CUDA-event time at the main path's shapes
+   and at the 512-tag, 512-row scale, its profiler device time, its plain
    version's times, and its bound; end-to-end us/decision per arrival and
    per wave of 512, beside the float64 host twin's on the same host, and
    the per-arrival valid call with two of its parts (inputs to the card,
    the result back to the host);
+6. serving path — gemma3-4b whole (34 layers, bf16, weights drawn on the card
+   from a seeded generator) behind the port's ``serve.Engine`` on
+   ``two_pod_cells()``: 4 sessions' prefills of 4096 seeded tokens through
+   the flash kernel, 32 decodes, one cell failed mid-run (its sessions are
+   re-prefilled elsewhere).  Every completion must be ok, every decode on
+   its session's cell, every logit finite; the flash counter must move by
+   exactly 34 per prefill and ``affinity_valid``'s must move.  Then the
+   flash kernel against its plain version on the q / k / v of the first
+   local and the first global layer, captured from the live prefill, in
+   bf16 and widened to float32 (at the float32 tolerance);
+7. whole model in float32 — one local:global period of gemma3-4b at full
+   width (6 layers), S = 2048: prefill logits through the flash kernel
+   against the direct path on the card;
+8. serving times — the flash kernel at (1, 4096, 8, 4, 256) bf16, causal and
+   window 1024 (CUDA-event and profiler ms, plain ms,
+   ``scaled_dot_product_attention`` ms, bound); prefill ms and tokens/s,
+   decode ms per token and the engine's scheduling us per request; where
+   one prefill's and one decode step's time goes on the card (profiler:
+   flash, matrix products, the rest, and the device's idle share);
 
 then a ``{"kernels": [...]}`` line, the card line, and the result line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -34,11 +57,14 @@ exits non-zero and prints no result line.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import random
+import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -47,6 +73,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.cluster.topology import two_pod_cells  # noqa: E402
+from repro_torch.configs.registry import GEMMA3_4B  # noqa: E402
 from repro_torch.core.ast import (AAppScript, Affinity, Block,  # noqa: E402
                                   Invalidate, TagPolicy)
 from repro_torch.core.state import ClusterState, Registry  # noqa: E402
@@ -56,12 +84,18 @@ from repro_torch.kernels.affinity import (KERNELS, NO_CAP,  # noqa: E402
 from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref  # noqa: E402
 from repro_torch.kernels.affinity.ops import as_inputs  # noqa: E402
 from repro_torch.kernels.affinity.ref import affinity_valid_ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
+from repro_torch.models import (init_cache, init_model,  # noqa: E402
+                                model_decode_step)
 from repro_torch.platform import Platform  # noqa: E402
+from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from repro_torch.train.step import make_prefill_step  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 
 # the reference rig (benchmarks/scheduler_scale.py): cluster, occupancy,
 # residency, wave size and seeds
@@ -76,7 +110,23 @@ FUNCTIONS = {"f_lat": (1.0, "lat"), "f_train": (8.0, "train"),
 
 # the TPU kernel each CUDA kernel replaces (its Pallas body in the JAX package)
 REPLACES = {"affinity_valid": "src/repro/kernels/affinity/kernel.py:33",
-            "bulk_decide": "src/repro/kernels/affinity/bulk_kernel.py:31"}
+            "bulk_decide": "src/repro/kernels/affinity/bulk_kernel.py:31",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/kernel.py:27"}
+ALL_KERNELS = (*KERNELS, *fa.KERNELS)
+
+# the serving path (launch/serve.py's deployment, gemma3-4b at full size)
+PROMPT = 4096
+SESSIONS = 4
+DECODES = 32
+FAIL_AT = 16  # the decode before which session s0's cell fails
+MAX_LEN = PROMPT + 64
+DEPLOY = ["pod0-cell0", "pod0-cell1", "pod1-cell0"]
+# flash kernel vs plain: float32 and bfloat16 tolerances of
+# tests/test_kernels.py; the float32 whole-model check's bound on logits
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+MODEL_F32_TOL = 1e-2
+F32_PROMPT = 2048
 
 
 def smoke_script() -> AAppScript:
@@ -396,6 +446,354 @@ def host_ms(fn, iters: int = 200) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+
+# --------------------------------------------------------------------------- #
+# flash attention and the serving path
+# --------------------------------------------------------------------------- #
+
+#: (B, Sq, Skv, H, K, hd, causal, window): ragged lengths (Sq = 1, 200,
+#: 257), Sq != Skv non-causal, GQA ratios H / K of 1, 2 and 4, head dims 64,
+#: 128 and 256, window 1 and a window past the sequence, and causal with a
+#: window at Sq > Skv and Sq < Skv (the kernel's key-tile bounds)
+FLASH_CASES = [
+    (1, 1, 1, 2, 1, 64, True, None),
+    (2, 200, 200, 4, 2, 64, True, None),
+    (1, 257, 257, 8, 4, 128, True, None),
+    (1, 257, 257, 4, 4, 256, True, 64),
+    (1, 128, 384, 4, 2, 64, False, None),
+    (1, 257, 100, 8, 2, 256, False, None),
+    (1, 300, 300, 8, 4, 256, True, 1),
+    (1, 300, 300, 8, 8, 128, True, 1024),
+    (1, 1000, 1000, 8, 2, 128, True, 100),
+    (1, 300, 200, 8, 4, 256, True, 128),
+    (1, 200, 300, 4, 2, 64, True, 50),
+]
+
+
+def flash_inputs(B, Sq, Skv, H, K, hd, dtype, seed: int):
+    """Seeded standard-normal q [B,Sq,H,hd], k / v [B,Skv,K,hd] on the
+    card, rounded to ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((B, Sq, H, hd), (B, Skv, K, hd),
+                               (B, Skv, K, hd)))
+
+
+def compare_flash(q, k, v, causal, window) -> float:
+    """The flash kernel against its plain version on the same card inputs;
+    raises past the dtype's tolerance, returns the largest difference."""
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError("flash_attention returned another dtype or "
+                             "shape than its plain version")
+    err = max_abs_err(got.float(), want.float())
+    if not err <= FLASH_TOL[q.dtype]:
+        raise AssertionError(
+            f"flash_attention differs from its plain version by {err} at "
+            f"q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, "
+            f"causal={causal}, window={window}")
+    return err
+
+
+def gemma_prompt(session: str, vocab: int) -> torch.Tensor:
+    """A seeded prompt of PROMPT token ids for one session."""
+    g = torch.Generator(device="cuda").manual_seed(100 + int(session[1:]))
+    return torch.randint(0, vocab, (1, PROMPT), generator=g, device="cuda")
+
+
+class ServeRunner:
+    """The runner ``launch/serve.py`` gives the engine, on the full model: a
+    prefill runs the flash prefill step on the session's prompt and makes an
+    empty cache (the JAX package has no prefill-into-cache for LMs); a
+    decode runs ``model_decode_step`` on the session's last token.  It keeps
+    each request's host seconds and whether every logit was finite."""
+
+    def __init__(self, cfg, model):
+        self.cfg, self.model = cfg, model
+        self.prefill = make_prefill_step(cfg, impl="flash")
+        self.caches, self.last = {}, {}
+        self.prefill_s, self.decode_s = [], []
+        self.finite = True
+
+    def __call__(self, req: Request, cell: str):
+        if req.kind == "prefill":
+            tokens = gemma_prompt(req.session, self.cfg.vocab)
+            t0 = time.perf_counter()
+            logits = self.prefill(self.model, {"tokens": tokens})
+            self.finite &= bool(torch.isfinite(logits).all())
+            self.prefill_s.append(time.perf_counter() - t0)
+            self.caches[(req.session, cell)] = init_cache(self.cfg, 1,
+                                                          MAX_LEN)
+            self.last[req.session] = int(tokens[0, -1])
+            return int(logits[0].argmax())
+        if req.kind == "decode":
+            key = (req.session, cell)
+            tok = torch.full((1, 1), self.last[req.session],
+                             dtype=torch.long, device="cuda")
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, self.caches[key] = model_decode_step(
+                    self.cfg, self.model, self.caches[key], tok)
+            self.finite &= bool(torch.isfinite(logits).all())
+            self.last[req.session] = int(logits[0].argmax())
+            self.decode_s.append(time.perf_counter() - t0)
+            return self.last[req.session]
+        raise ValueError(f"the serving run sends no {req.kind!r} requests")
+
+
+class FlashCapture:
+    """Stands in for the package's ``flash_attention`` during the serving
+    run and keeps the q / k / v of the first global (no window) and the
+    first local (windowed) call; every call goes on to the kernel."""
+
+    def __init__(self):
+        self.kernel = fa.flash_attention
+        self.seen = {}
+
+    def __call__(self, q, k, v, *args, **kw):
+        kind = "global" if kw.get("window") is None else "local"
+        self.seen.setdefault(kind, (q, k, v, kw.get("causal", True),
+                                    kw.get("window")))
+        return self.kernel(q, k, v, *args, **kw)
+
+
+def drive_serving(cfg, model):
+    """The serving path once: ``launch/serve.py``'s engine and deployment,
+    SESSIONS prefills, DECODES decodes drawn from a seeded generator, and
+    session s0's cell failed before decode FAIL_AT.  Returns the engine,
+    the runner, the host us of scheduling per submitted request (the
+    submit's wall time less the runner's), the failed cell, the sessions
+    it moved, and whether every decode ran on its session's cell."""
+    runner = ServeRunner(cfg, model)
+    with warnings.catch_warnings():  # the v1 call shape, as launch/serve.py
+        warnings.simplefilter("ignore", DeprecationWarning)
+        eng = Engine(two_pod_cells(), runner=runner, heartbeat_timeout=1e9)
+    eng.deploy(cfg.name, DEPLOY, weights_gb=8)
+    sched_us = []
+
+    def submit(req):
+        t0 = time.perf_counter()
+        c = eng.submit(req)
+        sched_us.append((time.perf_counter() - t0 - c.latency) * 1e6)
+        return c
+
+    sessions = [f"s{i}" for i in range(SESSIONS)]
+    for s in sessions:
+        submit(Request(model=cfg.name, kind="prefill", session=s))
+    order = random.Random(5)
+    victim, moved, stayed = None, [], True
+    for i in range(DECODES):
+        if i == FAIL_AT:
+            victim = eng.session_cell("s0")
+            moved = eng.fail_cell(victim)
+        s = order.choice(sessions)
+        c = submit(Request(model=cfg.name, kind="decode", session=s))
+        stayed &= c.ok and c.cell == eng.session_cell(s)
+    return eng, runner, sched_us, victim, moved, stayed
+
+
+def device_breakdown(fn, iters: int = 3):
+    """Where one call's time goes on the card: ``torch.profiler`` over
+    ``iters`` calls after one warm-up, the device time summed by kernel
+    name into the flash kernel, matrix products (cuBLAS / CUTLASS kernel
+    names) and the rest, beside the host wall time of the same calls under
+    the profiler; idle share = 1 - device time / wall time.  Kernels of one
+    stream do not overlap, so their sum is the device's busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    by_name = {e.key: e.self_device_time_total / iters / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    flash = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+    matmul = sum(v for k, v in by_name.items() if "flash_fwd" not in k and
+                 any(m in k.lower() for m in ("gemm", "nvjet", "xmma",
+                                              "cutlass")))
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "flash_ms": flash,
+            "matmul_ms": matmul, "other_ms": busy - flash - matmul,
+            "kernels": len(by_name),
+            "top": [[k[:80], v] for k, v in top]}
+
+
+def whole_model_f32(base):
+    """One local:global period of ``base`` (gemma3-4b) at full width in
+    float32: the prefill's logits through the flash kernel against the
+    direct path, on the same card and weights.  Returns the largest
+    difference, the largest logit and the flash launches of the flash
+    prefill."""
+    cfg = dataclasses.replace(base, n_layers=base.period, dtype="float32")
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(1))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, F32_PROMPT), generator=g,
+                                     device="cuda")}
+    fa.FLASH_ATTENTION_KERNEL.launches = 0
+    flash = make_prefill_step(cfg, impl="flash")(model, batch)
+    launches = fa.FLASH_ATTENTION_KERNEL.launches
+    direct = make_prefill_step(cfg, impl="direct")(model, batch)
+    torch.cuda.synchronize()
+    err = max_abs_err(flash, direct)
+    if not err <= MODEL_F32_TOL or launches != cfg.n_layers:
+        raise AssertionError(f"float32 gemma3-4b period: flash vs direct "
+                             f"logits differ by {err} (bound "
+                             f"{MODEL_F32_TOL}), {launches} flash launches")
+    return err, float(direct.abs().max()), launches
+
+
+def masked_pairs(S: int, window) -> int:
+    """(query, key) pairs a causal mask (with ``window``) admits at
+    Sq = Skv = S."""
+    if window is None:
+        return S * (S + 1) // 2
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def time_flash(window, seed: int):
+    """The flash kernel at the serving path's shape (1, 4096, 8, 4, 256)
+    bf16, causal with ``window``: CUDA-event ms per call, profiler device
+    ms, the plain version's ms, ``scaled_dot_product_attention``'s ms on
+    the same inputs (causal with ``enable_gqa``; the window as an explicit
+    mask) and the bound: the larger of every input read once and the
+    output written once over HBM, and the mask's useful multiply-adds
+    (q k^T and p v, 4 hd flops per admitted pair and head) at the dense
+    bf16 tensor rate."""
+    import torch.nn.functional as F
+
+    B, S, H, K, hd = 1, PROMPT, 8, 4, 256
+    q, k, v = flash_inputs(B, S, S, H, K, hd, torch.bfloat16, seed)
+    kern = lambda: fa.flash_attention(q, k, v, causal=True,  # noqa: E731
+                                      window=window)
+    plain = lambda: fa.flash_attention_ref(  # noqa: E731
+        q, k, v, causal=True, window=window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flops = 4 * hd * H * masked_pairs(S, window)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return {"shape": [B, S, H, K, hd], "window": window,
+            "ms": cuda_ms(kern, iters=50, warmup=5),
+            "device_ms": device_ms(kern, iters=20),
+            "plain_ms": cuda_ms(plain, iters=10, warmup=2),
+            "library_ms": cuda_ms(lib, iters=50, warmup=5),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "useful_gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+def serving_path(cfg):
+    """Phase 6: ``cfg`` whole behind ``serve.Engine`` with every launch
+    counter set to 0 just before and read just after, the run's checks, and
+    the flash kernel held to its plain version on the q / k / v the run
+    captured.  Returns the launches, those comparisons' errors and the
+    run's end-to-end numbers."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    capture = FlashCapture()
+    fa.flash_attention = capture
+    for k in ALL_KERNELS:
+        k.launches = 0
+    try:
+        eng, runner, sched_us, victim, moved, stayed = drive_serving(cfg,
+                                                                     model)
+    finally:
+        fa.flash_attention = capture.kernel
+    serve_launches = {k.name: k.launches for k in ALL_KERNELS}
+    n_prefills = len(runner.prefill_s)
+    bad = [c for c in eng.completions if not c.ok]
+    if bad or not stayed or not runner.finite:
+        raise AssertionError(f"serving path: {len(bad)} failed completions,"
+                             f" decodes on their session's cell: {stayed}, "
+                             f"logits finite: {runner.finite}")
+    if not moved or victim is None or n_prefills != SESSIONS + len(moved):
+        raise AssertionError(f"serving path: failing {victim} moved {moved};"
+                             f" {n_prefills} prefills ran")
+    if serve_launches["flash_attention"] != cfg.n_layers * n_prefills or \
+            serve_launches["affinity_valid"] == 0:
+        raise AssertionError(f"serving path launches {serve_launches} for "
+                             f"{n_prefills} prefills of {cfg.n_layers} "
+                             "layers")
+    print(f"serving path: {cfg.name} whole ({cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters, bf16, drawn on the card in "
+          f"{init_s:.2f} s) behind serve.Engine on {len(two_pod_cells())} "
+          f"cells; {SESSIONS} prefills of {PROMPT} tokens, {DECODES} decodes"
+          f", cell {victim} failed before decode {FAIL_AT} (re-prefilled "
+          f"{moved}); {len(eng.completions)} completions ok, decodes on "
+          f"their session's cell, logits finite; launches {serve_launches} "
+          f"({n_prefills} prefills x {cfg.n_layers})", flush=True)
+    # the outputs are softmax means of v over up to 4096 keys, far smaller
+    # than the bf16 tolerance: the same inputs widened to float32 are held
+    # at the float32 tolerance, and the outputs' median size is printed
+    main_err, main_err_f32, median_out = {}, {}, {}
+    for kind in ("local", "global"):
+        q, k, v, causal, window = capture.seen[kind]
+        main_err[kind] = compare_flash(q, k, v, causal, window)
+        q, k, v = (t.float() for t in (q, k, v))
+        main_err_f32[kind] = compare_flash(q, k, v, causal, window)
+        median_out[kind] = float(fa.flash_attention_ref(
+            q, k, v, causal=causal, window=window).abs().median())
+    print(f"flash_attention vs plain at the serving path's inputs (the first"
+          f" local and global layer of the first prefill, "
+          f"{tuple(capture.seen['local'][0].shape)}): max abs err {main_err} "
+          f"in bf16 (tolerance {FLASH_TOL[torch.bfloat16]}), {main_err_f32} "
+          f"on the same inputs in float32 (tolerance "
+          f"{FLASH_TOL[torch.float32]}); median |output| {median_out}",
+          flush=True)
+    # where a prefill's and a decode step's time goes on the card
+    tokens = gemma_prompt("s0", cfg.vocab)
+    prefill = make_prefill_step(cfg, impl="flash")
+    state = {"cache": init_cache(cfg, 1, MAX_LEN)}
+    tok = tokens[:, -1:]
+
+    def decode():
+        with torch.no_grad():
+            _, state["cache"] = model_decode_step(cfg, model, state["cache"],
+                                                  tok)
+
+    breakdown = {"prefill": device_breakdown(
+                     lambda: prefill(model, {"tokens": tokens})),
+                 "decode": device_breakdown(decode, iters=8)}
+    prefill_ms = [t * 1e3 for t in runner.prefill_s]
+    decode_ms = [t * 1e3 for t in runner.decode_s]
+    serving = {
+        "prefill_ms": prefill_ms,
+        "prefill_ms_median": statistics.median(prefill_ms),
+        "prefill_tokens_per_s_median": PROMPT / statistics.median(
+            runner.prefill_s),
+        "decode_ms_per_token_median": statistics.median(decode_ms),
+        "decode_ms_per_token_mean": statistics.mean(decode_ms),
+        "sched_us_per_request_median": statistics.median(sched_us),
+        "sched_us_per_request_mean": statistics.mean(sched_us),
+        "requests": len(sched_us),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "flash_vs_plain_main_path": {"bf16": main_err, "float32": main_err_f32,
+                                     "median_abs_output": median_out},
+        "breakdown": breakdown}
+    return serve_launches, main_err, serving
+
+
+
 # --------------------------------------------------------------------------- #
 
 
@@ -413,11 +811,16 @@ def main() -> int:
     print(f"card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
+    # float32 products in full float32 (the defaults, stated): the float32
+    # checks below compare paths, not TF32 roundings
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     # 2. build, from the sources in this checkout
-    for k in KERNELS:
+    for k in ALL_KERNELS:
         k.library_path().unlink(missing_ok=True)
-    build_s = build_all(KERNELS)
-    print(f"build: {', '.join(k.name for k in KERNELS)} built in "
+    build_s = build_all(ALL_KERNELS)
+    print(f"build: {', '.join(k.name for k in ALL_KERNELS)} built in "
           f"{build_s:.2f} s (nvcc, sm_90a, in parallel)", flush=True)
 
     # 3. kernels vs plain, bit for bit
@@ -430,8 +833,19 @@ def main() -> int:
     print(f"kernels vs plain: bit-exact on valid, score and winner (max abs "
           f"err {errs}) at (W, T, R) = {shapes}, with all-tied and "
           "all-invalid rows", flush=True)
+    flash_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (B, Sq, Skv, H, K, hd, causal, window) in enumerate(FLASH_CASES):
+        for dtype in flash_err:
+            q, k, v = flash_inputs(B, Sq, Skv, H, K, hd, dtype, seed=i)
+            flash_err[dtype] = max(flash_err[dtype],
+                                   compare_flash(q, k, v, causal, window))
+    print(f"flash_attention vs plain: max abs err {flash_err[torch.float32]}"
+          f" in float32 (tolerance {FLASH_TOL[torch.float32]}), "
+          f"{flash_err[torch.bfloat16]} in bfloat16 (tolerance "
+          f"{FLASH_TOL[torch.bfloat16]}) at (B, Sq, Skv, H, K, hd, causal, "
+          f"window) = {FLASH_CASES}", flush=True)
 
-    # 4. the main path at full size, held to the float64 twin
+    # 4. the decision path at full size, held to the float64 twin
     plat = build_rig(WORKERS)  # device="cuda", the default
     for f in FUNCTIONS:  # first-launch and cache warm-up, outside the count
         plat.decide(f, rng=random.Random(0))
@@ -500,6 +914,27 @@ def main() -> int:
            "np_twin_us_per_decision_wave512":
                twin_secs["wave_s"] / WAVE * 1e6}
     print(f"end to end {tag}: {json.dumps(e2e)}", flush=True)
+
+    # 6. the serving path: gemma3-4b whole behind serve.Engine
+    cfg = GEMMA3_4B
+    serve_launches, main_err, serving = serving_path(cfg)
+
+    # 7. one period of the model at full width in float32: flash vs direct
+    f32_err, f32_scale, f32_launches = whole_model_f32(cfg)
+    print(f"whole model, float32: gemma3-4b with n_layers=6 (one 5:1 "
+          f"local:global period, full width), S = 2048; prefill logits via "
+          f"flash vs direct: max abs err {f32_err} (bound {MODEL_F32_TOL}; "
+          f"largest |logit| {f32_scale}); {f32_launches} flash launches",
+          flush=True)
+
+    # 8. serving times
+    flash_t = {"causal": time_flash(None, seed=11),
+               "window1024": time_flash(cfg.sliding_window, seed=12)}
+    for name, t in flash_t.items():
+        print(f"time {tag}: flash_attention {name} at "
+              f"{tuple(t['shape'])} bf16: {json.dumps(t)}", flush=True)
+    print(f"serving end to end {tag}: {json.dumps(serving)}", flush=True)
+
     rows = []
     for k in KERNELS:
         name = k.name
@@ -511,6 +946,20 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None,
                      "device_ms": t["device_ms"], "shape": t["shape"]})
+    t = flash_t["causal"]
+    k = fa.FLASH_ATTENTION_KERNEL
+    rows.append({"name": k.name, "route": "cuda",
+                 "source": str(k.source.relative_to(ROOT)),
+                 "replaces": REPLACES[k.name],
+                 "launches": serve_launches[k.name],
+                 "max_abs_err": max(*flash_err.values(), *main_err.values()),
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+                 "shape": t["shape"], "window1024": {
+                     key: flash_t["window1024"][key] for key in (
+                         "ms", "device_ms", "plain_ms", "library_ms",
+                         "bound_ms", "bound_by")}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Carry a cluster's scheduling state into the port.
+"""Carry state into the port as plain data: a cluster's scheduling state,
+and a model's parameters.
 
 The port shares no objects with the JAX package, so a running cluster
 crosses over as plain data — a snapshot any caller can take from its own
@@ -6,13 +7,18 @@ tables — and is replayed into the port's :class:`ClusterState` and
 :class:`Registry`.  Replaying in order reproduces the worker order (the
 order ``conf()`` lists workers, which decides ``best_first`` ties) and the
 activation ids of the running instances; the snapshot's ``next_id`` makes
-new ids continue where the source's do.
+new ids continue where the source's do.  A model's parameters cross as the
+reference's parameter pytree with numpy leaves (:func:`lm_params_from_jax`).
 """
 from __future__ import annotations
 
 import itertools
-from typing import Iterable, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
+import numpy as np
+import torch
+
+from .configs.base import ModelConfig
 from .core.state import ClusterState, Registry
 
 #: (name, max_memory, zone, alive); zone "" or None for an unzoned worker
@@ -80,3 +86,70 @@ def _resume_ids(state: ClusterState, n: int) -> None:
     (a verbatim copy of the reference's) has no public setter for its id
     counter, so the replay sets it here, in this one place."""
     state._ids = itertools.count(n)
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 leaves (numpy's ``bfloat16``
+    extension type) cross through their bits."""
+    arr = np.array(arr)  # a writable, contiguous copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _flatten(prefix: str, tree, out: Dict[str, Any], index=None) -> None:
+    """Nested dicts of leaves into ``prefix.name`` keys; ``index`` picks one
+    slice of a ``[G, ...]`` scan stack."""
+    for name, leaf in tree.items():
+        key = f"{prefix}.{name}"
+        if isinstance(leaf, Mapping):
+            _flatten(key, leaf, out, index)
+        else:
+            out[key] = np.asarray(leaf)[index] if index is not None \
+                else np.asarray(leaf)
+
+
+def lm_params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
+    """The reference's decoder-only LM parameters (the pytree of
+    ``repro.models.init_model``, leaves as numpy arrays) as the port's
+    :class:`repro_torch.models.transformer.LM` on ``device``.
+
+    The reference keeps one ``[G, ...]`` stack per period position in
+    ``tree["layers"]`` and the unrolled remainder in ``tree["tail"]``; the
+    port's flat layer list takes group g, position p as layer
+    ``g * period + p`` and the tail after them.  ``lm_head`` is present
+    only without ``tie_embeddings``.  Names, shapes and the set of leaves
+    must match the port's parameters exactly, or it raises."""
+    from .kernels.affinity.ops import resolve_device
+    from .models.layers import dtype_of
+    from .models.transformer import LM, check_supported
+
+    check_supported(cfg)
+    dev = resolve_device(device)
+    flat: Dict[str, Any] = {}
+    for name in ("embed", "final_norm", "frontend"):
+        if name in tree:
+            _flatten(name, tree[name], flat)
+    if "lm_head" in tree:
+        flat["lm_head"] = np.asarray(tree["lm_head"])
+    n_stacked = cfg.n_groups * cfg.period
+    for i in range(n_stacked):
+        g, p = divmod(i, cfg.period)
+        _flatten(f"layers.{i}", tree["layers"][p], flat, index=g)
+    for t in range(cfg.n_tail):
+        _flatten(f"layers.{n_stacked + t}", tree["tail"][t], flat)
+    model = LM(cfg, generator=None, device="meta")
+    want = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    got = {k: tuple(v.shape) for k, v in flat.items()}
+    if want != got:
+        raise ValueError(
+            f"the pytree does not match {cfg.name}'s parameters: missing "
+            f"{sorted(want.keys() - got.keys())}, unexpected "
+            f"{sorted(got.keys() - want.keys())}, shapes differ at "
+            f"{sorted(k for k in want.keys() & got.keys() if want[k] != got[k])}")
+    dt = dtype_of(cfg.dtype)
+    for key, arr in flat.items():
+        owner, _, name = key.rpartition(".")
+        setattr(model.get_submodule(owner), name, torch.nn.Parameter(
+            _tensor(arr).to(device=dev, dtype=dt), requires_grad=False))
+    return model

@@ -3,7 +3,9 @@ version (the CPU path and the yardstick on the card):
 
 * affinity — the paper's batched valid() scheduling matrix and the fused
   bulk decide pass (CUDA C++, ``affinity/csrc/``)
+* flash_attention — the causal / sliding-window GQA attention forward of
+  the model-serving path (CUDA C++, ``flash_attention/csrc/``)
 
-The reference's flash-attention and mamba-scan Pallas kernels serve the
-model stack, a later slice (``ROADMAP.md``, Queue 2).
+The reference's mamba-scan Pallas kernel belongs to the SSM/hybrid slice
+(``ROADMAP.md``, Queue 2).
 """

@@ -24,7 +24,10 @@ from typing import Iterable, Optional, Sequence, Tuple
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: the affinity kernels repeat the reference's float32 operations one by one
+#: (bit-exact against their plain versions), so nothing is contracted to FMA
+EXACT_FLAGS = NVCC_FLAGS + ("--fmad=false",)
 
 
 def nvcc_path() -> str:
@@ -45,8 +48,10 @@ class CudaKernel:
     wrapper bumps once per launch and nowhere else)."""
 
     def __init__(self, name: str, source: str, entry: str,
-                 argtypes: Sequence, headers: Iterable[str] = ()):
+                 argtypes: Sequence, headers: Iterable[str] = (),
+                 flags: Sequence[str] = EXACT_FLAGS):
         self.name = name
+        self.flags = tuple(flags)
         self.source = KERNELS_DIR / source
         self.headers = tuple(KERNELS_DIR / h for h in headers)
         self.entry = entry
@@ -55,7 +60,7 @@ class CudaKernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(self.flags).encode())
         for p in (self.source, *self.headers):
             h.update(p.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
@@ -71,7 +76,7 @@ class CudaKernel:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [nvcc_path(), *self.flags, "-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, lib

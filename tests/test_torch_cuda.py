@@ -1,13 +1,16 @@
-"""The port on the card: each CUDA kernel against its plain PyTorch version
-on the same card inputs (bit for bit, no tolerance), and the main path
+"""The port on the card: each affinity kernel against its plain PyTorch
+version on the same card inputs (bit for bit, no tolerance), the main path
 through the kernels against the same path through the plain versions on
-the CPU.  Every test here needs an NVIDIA GPU and skips without one; the
+the CPU, and the flash-attention kernel against its plain version within
+the tolerances of ``tests/test_kernels.py`` (float32 2e-5, bfloat16
+5e-2).  Every test here needs an NVIDIA GPU and skips without one; the
 module imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch built for CUDA."""
 import pytest
 import torch
 
 import chip_smoke
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.affinity import affinity_valid, bulk_decide
 from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref
 from repro_torch.kernels.affinity.ref import affinity_valid_ref
@@ -43,3 +46,24 @@ def test_main_path_on_the_card_equals_the_plain_versions(card):
     want, _ = chip_smoke.drive_main_path(
         chip_smoke.build_rig(4096, device="cpu"))
     assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_equals_its_plain_version_on_the_card(card, case,
+                                                              dtype):
+    """Ragged lengths, Sq != Skv, GQA ratios 1, 2, 4, head dims 64, 128,
+    256, window 1 and a window past the sequence; each launch counted."""
+    B, Sq, Skv, H, K, hd, causal, window = case
+    q, k, v = chip_smoke.flash_inputs(B, Sq, Skv, H, K, hd, dtype, seed=Sq)
+    before = fa.FLASH_ATTENTION_KERNEL.launches
+    err = chip_smoke.compare_flash(q, k, v, causal, window)
+    assert err <= chip_smoke.FLASH_TOL[dtype]
+    assert fa.FLASH_ATTENTION_KERNEL.launches == before + 1
+
+
+def test_flash_attention_refuses_an_unsupported_head_dim_on_the_card(card):
+    q = torch.zeros((1, 8, 2, 96), device="cuda")
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])

@@ -1,0 +1,164 @@
+"""The port's flash attention and attention switch against the JAX
+package's, on the CPU (where the port runs the kernel's plain PyTorch
+version and the reference runs its Pallas kernel in interpret mode).
+
+Inputs are drawn with numpy from a seed and handed to both sides.
+Tolerances are those of ``tests/test_kernels.py`` for the flash kernel:
+2e-5 in float32, 5e-2 in bfloat16 (both sides round the output to bf16
+once; the two can differ by one bf16 step).  The attention switch is held
+to 1e-5 in float32: the same maths, summed in another order."""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.models import attention as jax_attn  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.models import attention as port_attn  # noqa: E402
+
+_DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16,
+                                                     torch.bfloat16)}
+
+
+def qkv(seed, B, Sq, Skv, H, K, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd), dtype=np.float32),
+            rng.standard_normal((B, Skv, K, hd), dtype=np.float32),
+            rng.standard_normal((B, Skv, K, hd), dtype=np.float32))
+
+
+def both(arrays, dt):
+    jdt, tdt = _DT[dt]
+    return ([jnp.asarray(a).astype(jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def err(jax_out, torch_out) -> float:
+    return float(np.max(np.abs(np.asarray(jax_out, np.float32)
+                               - torch_out.float().numpy())))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,dt,tol", [
+    # the five shapes of tests/test_kernels.py, with their tolerances
+    (2, 128, 128, 4, 2, 64, True, None, "f32", 2e-5),
+    (1, 256, 256, 8, 8, 32, True, 64, "f32", 2e-5),
+    (2, 200, 200, 4, 1, 64, True, None, "bf16", 5e-2),
+    (1, 128, 384, 4, 2, 64, False, None, "f32", 2e-5),
+    (1, 384, 384, 2, 2, 128, True, 100, "f32", 2e-5),
+    # gemma3-like: GQA 8:4, head_dim 256, sliding window, ragged length
+    (1, 300, 300, 8, 4, 256, True, 64, "f32", 2e-5),
+    # causal + window at ragged Sq != Skv: the kernel's key-tile bounds
+    (1, 300, 200, 8, 4, 256, True, 128, "f32", 2e-5),
+    (1, 200, 300, 4, 2, 64, True, 50, "f32", 2e-5),
+])
+def test_flash_attention_equals_the_reference(B, Sq, Skv, H, K, hd, causal,
+                                              window, dt, tol):
+    (jq, jk, jv), (tq, tk, tv) = both(
+        qkv(Sq * 7 + hd, B, Sq, Skv, H, K, hd), dt)
+    want = jax_flash(jq, jk, jv, causal=causal, window=window, bq=128,
+                     bk=128)
+    got = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert err(want, got) < tol
+    assert torch.equal(flash_attention(tq, tk, tv, causal=causal,
+                                       window=window, backend="ref"), got)
+
+
+@pytest.mark.parametrize("impl", ["direct", "chunked", "chunked2d", "flash"])
+@pytest.mark.parametrize("S,window,q_block", [(320, None, 64),
+                                              (320, 48, 64),
+                                              (320, None, 128),
+                                              (128, 16, 64)])
+def test_attention_switch_equals_the_reference(impl, S, window, q_block):
+    """Every ``impl`` at S = 320 (past the 256 x 256 direct-path rule, so
+    the chosen path is really taken; q_block 128 does not divide 320, so
+    chunked2d falls back to chunked) and at S = 128 (where every impl takes
+    the direct path)."""
+    B, H, K, hd = 1, 4, 2, 32
+    (jq, jk, jv), (tq, tk, tv) = both(qkv(S + (window or 0), B, S, S, H, K,
+                                          hd), "f32")
+    pos_j = jnp.arange(S, dtype=jnp.int32)
+    pos_t = torch.arange(S, dtype=torch.int32)
+    kw = dict(causal=True, window=window, impl=impl, chunk=64,
+              q_block=q_block)
+    want = jax_attn.attention(jq, jk, jv, pos_j, pos_j, **kw)
+    got = port_attn.attention(tq, tk, tv, pos_t, pos_t, **kw)
+    assert err(want, got) < 1e-5
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 40), (False, 40)])
+def test_chunked_paths_equal_the_reference_at_ragged_lengths(causal, window):
+    """Sq != Skv and Skv not a multiple of the chunk (the padded last
+    chunk), for the chunked paths the switch can take."""
+    B, Sq, Skv, H, K, hd = 1, 192, 300, 4, 1, 16
+    (jq, jk, jv), (tq, tk, tv) = both(qkv(5, B, Sq, Skv, H, K, hd), "f32")
+    pq_j, pk_j = jnp.arange(Sq, dtype=jnp.int32), jnp.arange(Skv,
+                                                            dtype=jnp.int32)
+    pq_t, pk_t = torch.arange(Sq, dtype=torch.int32), torch.arange(
+        Skv, dtype=torch.int32)
+    for fn in ("attention_chunked", "attention_chunked2d"):
+        kw = dict(causal=causal, window=window, chunk=64)
+        if fn == "attention_chunked2d":
+            kw["q_block"] = 64
+        want = getattr(jax_attn, fn)(jq, jk, jv, pq_j, pk_j, **kw)
+        got = getattr(port_attn, fn)(tq, tk, tv, pq_t, pk_t, **kw)
+        assert err(want, got) < 1e-5, fn
+
+
+def test_bf16_chunked_path_equals_the_reference():
+    """bf16 inputs through the chunked path: probabilities rounded to bf16
+    before the product with v, as the reference does."""
+    (jq, jk, jv), (tq, tk, tv) = both(qkv(9, 1, 320, 320, 4, 2, 32), "bf16")
+    pj, pt = jnp.arange(320, dtype=jnp.int32), torch.arange(
+        320, dtype=torch.int32)
+    want = jax_attn.attention_chunked(jq, jk, jv, pj, pj, chunk=64)
+    got = port_attn.attention_chunked(tq, tk, tv, pt, pt, chunk=64)
+    assert got.dtype == torch.bfloat16
+    assert err(want, got) < 5e-2
+
+
+def test_cpu_tensors_take_the_plain_version_and_nothing_else(monkeypatch):
+    """A CPU tensor runs the plain version; a tensor elsewhere reaches
+    neither it nor the kernel; the kernel wrapper refuses host tensors and
+    what the kernel does not take, and counts no launch."""
+    calls = []
+    monkeypatch.setattr(fa_ops, "flash_attention_ref",
+                        lambda *a, **k: calls.append("ref"))
+    monkeypatch.setattr(fa_ops, "flash_attention_kernel",
+                        lambda *a, **k: calls.append("kernel"))
+    _, (tq, tk, tv) = both(qkv(1, 1, 8, 8, 2, 1, 64), "f32")
+    fa_ops.flash_attention(tq, tk, tv)
+    assert calls == ["ref"]
+    meta = torch.zeros((1, 8, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa_ops.flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
+    with pytest.raises(ValueError, match="unknown backend"):
+        fa_ops.flash_attention(tq, tk, tv, backend="pallas")
+    assert calls == ["ref"]
+    before = fa_kernel.KERNEL.launches
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        fa_kernel.flash_attention_kernel(tq, tk, tv)
+    assert fa_kernel.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,dtype,window,match", [
+    ((1, 8, 2, 32), (1, 8, 1, 32), torch.float32, None, "head_dim 32"),
+    ((1, 8, 3, 64), (1, 8, 2, 64), torch.float32, None, "do not group"),
+    ((1, 8, 2, 64), (1, 8, 1, 64), torch.float16, None, "float32 or bf"),
+    ((1, 8, 2, 64), (1, 8, 1, 64), torch.float32, 0, "window must be"),
+    ((1, 8, 2, 64), (1, 9, 1, 128), torch.float32, None, "must be"),
+    ((1, 12, 2, 64), (1, 8, 1, 64), torch.float32, 4, "see no key"),
+])
+def test_kernel_wrapper_refuses_what_the_kernel_cannot_take(
+        shape_q, shape_kv, dtype, window, match):
+    q = torch.zeros(shape_q, dtype=dtype)
+    kv = torch.zeros(shape_kv, dtype=dtype)
+    with pytest.raises((ValueError, TypeError), match=match):
+        fa_kernel.check_shapes(q, kv, kv, window)
+

@@ -45,7 +45,11 @@ def test_a_fresh_interpreter_loads_no_jax_and_no_reference_module():
         "sys.path.insert(0, 'src'); sys.path.insert(0, '.')\n"
         "import repro_torch, repro_torch.core, repro_torch.platform, "
         "repro_torch.analysis, repro_torch.convert, "
-        "repro_torch.kernels.affinity, chip_smoke\n"
+        "repro_torch.kernels.affinity, repro_torch.configs, "
+        "repro_torch.models, repro_torch.kernels.flash_attention, "
+        "repro_torch.train.step, repro_torch.serve.engine, repro_torch.pool, "
+        "repro_torch.cluster.topology, repro_torch.launch.serve, "
+        "chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,
