@@ -6,7 +6,7 @@
 Phases, one line each (every time beside the card's name and power limit):
 
 1. card   — ``nvidia-smi`` name and power limit; fails without CUDA;
-2. build  — the three kernels from ``src/repro_torch/kernels/*/csrc/*.cu``
+2. build  — the four kernels from ``src/repro_torch/kernels/*/csrc/*.cu``
    with ``nvcc``, one process per source, in parallel;
 3. kernels vs plain — each affinity kernel against its plain PyTorch version
    on the card, bit for bit, at tile-edge shapes and at the main path's
@@ -15,7 +15,9 @@ Phases, one line each (every time beside the card's name and power limit):
    plain version in float32 (within 2e-5) and bfloat16 (within 5e-2) at
    ragged lengths, Sq != Skv, GQA ratios 1, 2, 4, head dims 64, 128, 256,
    window 1 and a window past the sequence, causal with a window at
-   Sq != Skv;
+   Sq != Skv; the selective-scan kernel against its plain version within
+   1e-4 at the shapes of ``tests/test_kernels.py``'s sweep, a ragged S and
+   D, N of 1 and 32, and bfloat16 inputs;
 4. decision path — the port's ``Platform`` on the reference scheduler-scale rig
    (16384 workers of 64 MB, 50% pre-occupied, 5% sparse warm residency):
    512 ``decide()`` calls, ``decide_batch`` waves of 512 with
@@ -49,6 +51,23 @@ Phases, one line each (every time beside the card's name and power limit):
    decode ms per token and the engine's scheduling us per request; where
    one prefill's and one decode step's time goes on the card (profiler:
    flash, matrix products, the rest, and the device's idle share);
+9. SSM serving path — gemma3-4b's weights freed, falcon-mamba-7b whole (64
+   mamba layers, d_inner 8192, N = 16, bf16, weights drawn on the card)
+   behind the same engine, deployment, sessions, decodes and cell failure
+   as phase 6: every completion ok, every decode on its session's cell,
+   every logit finite, the selective-scan counter moved by exactly 64 per
+   prefill and the flash counter not at all.  Then the scan kernel against
+   its plain version on the dt / x / b / c / a of the first layer of the
+   first live prefill, within 1e-4 max(1, max |y|);
+10. SSM model in float32 — falcon-mamba-7b at full width with 2 layers,
+   S = 2048: the prefill's logits at every position through the kernel
+   against ``backend="ref"`` on the card, within 1e-4 max(1, max |logit|);
+11. SSM times — the scan kernel at (1, 4096, 8192, 16) with the serving
+   path's types (dt float32, x / b / c bf16): CUDA-event and profiler ms,
+   plain ms and the bound; falcon-mamba-7b's prefill ms and tokens/s,
+   decode ms per token, scheduling us per request, and where one prefill's
+   and one decode step's time goes (scan kernel, matrix products, the
+   rest, idle share);
 
 then a ``{"kernels": [...]}`` line, the card line, and the result line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -58,6 +77,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
+import gc
 import json
 import random
 import statistics
@@ -74,7 +95,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.cluster.topology import two_pod_cells  # noqa: E402
-from repro_torch.configs.registry import GEMMA3_4B  # noqa: E402
+from repro_torch.configs.registry import (FALCON_MAMBA_7B,  # noqa: E402
+                                          GEMMA3_4B)
 from repro_torch.core.ast import (AAppScript, Affinity, Block,  # noqa: E402
                                   Invalidate, TagPolicy)
 from repro_torch.core.state import ClusterState, Registry  # noqa: E402
@@ -85,9 +107,11 @@ from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref  # noqa: E402
 from repro_torch.kernels.affinity.ops import as_inputs  # noqa: E402
 from repro_torch.kernels.affinity.ref import affinity_valid_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.models import (init_cache, init_model,  # noqa: E402
-                                model_decode_step)
+                                model_decode_step, model_forward)
+from repro_torch.models.transformer import lm_logits  # noqa: E402
 from repro_torch.platform import Platform  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 from repro_torch.train.step import make_prefill_step  # noqa: E402
@@ -96,6 +120,7 @@ from repro_torch.train.step import make_prefill_step  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12  # the CUDA cores, outside the tensor cores
 
 # the reference rig (benchmarks/scheduler_scale.py): cluster, occupancy,
 # residency, wave size and seeds
@@ -112,8 +137,9 @@ FUNCTIONS = {"f_lat": (1.0, "lat"), "f_train": (8.0, "train"),
 REPLACES = {"affinity_valid": "src/repro/kernels/affinity/kernel.py:33",
             "bulk_decide": "src/repro/kernels/affinity/bulk_kernel.py:31",
             "flash_attention":
-                "src/repro/kernels/flash_attention/kernel.py:27"}
-ALL_KERNELS = (*KERNELS, *fa.KERNELS)
+                "src/repro/kernels/flash_attention/kernel.py:27",
+            "selective_scan": "src/repro/kernels/mamba_scan/kernel.py:25"}
+ALL_KERNELS = (*KERNELS, *fa.KERNELS, *ms.KERNELS)
 
 # the serving path (launch/serve.py's deployment, gemma3-4b at full size)
 PROMPT = 4096
@@ -127,6 +153,12 @@ DEPLOY = ["pod0-cell0", "pod0-cell1", "pod1-cell0"]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 MODEL_F32_TOL = 1e-2
 F32_PROMPT = 2048
+# selective scan vs plain: tests/test_kernels.py's 1e-4 (the sum over N is
+# taken in another order, so the two are not bit-identical); on the serving
+# path's inputs and on the float32 model's logits, 1e-4 of the larger of 1
+# and the largest |output|
+SCAN_TOL = 1e-4
+SSM_F32_LAYERS = 2
 
 
 def smoke_script() -> AAppScript:
@@ -497,15 +529,17 @@ def compare_flash(q, k, v, causal, window) -> float:
     return err
 
 
-def gemma_prompt(session: str, vocab: int) -> torch.Tensor:
-    """A seeded prompt of PROMPT token ids for one session."""
+def session_prompt(session: str, vocab: int) -> torch.Tensor:
+    """A seeded prompt of PROMPT token ids for one session (the same for
+    either model of the serving runs)."""
     g = torch.Generator(device="cuda").manual_seed(100 + int(session[1:]))
     return torch.randint(0, vocab, (1, PROMPT), generator=g, device="cuda")
 
 
 class ServeRunner:
     """The runner ``launch/serve.py`` gives the engine, on the full model: a
-    prefill runs the flash prefill step on the session's prompt and makes an
+    prefill runs the prefill step (attention through the flash kernel, mamba
+    layers through the scan kernel) on the session's prompt and makes an
     empty cache (the JAX package has no prefill-into-cache for LMs); a
     decode runs ``model_decode_step`` on the session's last token.  It keeps
     each request's host seconds and whether every logit was finite."""
@@ -519,7 +553,7 @@ class ServeRunner:
 
     def __call__(self, req: Request, cell: str):
         if req.kind == "prefill":
-            tokens = gemma_prompt(req.session, self.cfg.vocab)
+            tokens = session_prompt(req.session, self.cfg.vocab)
             t0 = time.perf_counter()
             logits = self.prefill(self.model, {"tokens": tokens})
             self.finite &= bool(torch.isfinite(logits).all())
@@ -594,12 +628,13 @@ def drive_serving(cfg, model):
     return eng, runner, sched_us, victim, moved, stayed
 
 
-def device_breakdown(fn, iters: int = 3):
+def device_breakdown(fn, marker: str, label: str, iters: int = 3):
     """Where one call's time goes on the card: ``torch.profiler`` over
     ``iters`` calls after one warm-up, the device time summed by kernel
-    name into the flash kernel, matrix products (cuBLAS / CUTLASS kernel
-    names) and the rest, beside the host wall time of the same calls under
-    the profiler; idle share = 1 - device time / wall time.  Kernels of one
+    name into the port's kernel (names holding ``marker``, reported as
+    ``<label>_ms``), matrix products (cuBLAS / CUTLASS kernel names) and
+    the rest, beside the host wall time of the same calls under the
+    profiler; idle share = 1 - device time / wall time.  Kernels of one
     stream do not overlap, so their sum is the device's busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -615,15 +650,15 @@ def device_breakdown(fn, iters: int = 3):
     by_name = {e.key: e.self_device_time_total / iters / 1e3
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA}
-    flash = sum(v for k, v in by_name.items() if "flash_fwd" in k)
-    matmul = sum(v for k, v in by_name.items() if "flash_fwd" not in k and
+    own = sum(v for k, v in by_name.items() if marker in k)
+    matmul = sum(v for k, v in by_name.items() if marker not in k and
                  any(m in k.lower() for m in ("gemm", "nvjet", "xmma",
                                               "cutlass")))
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"wall_ms": wall_ms, "device_ms": busy,
-            "idle_share": 1.0 - busy / wall_ms, "flash_ms": flash,
-            "matmul_ms": matmul, "other_ms": busy - flash - matmul,
+            "idle_share": 1.0 - busy / wall_ms, f"{label}_ms": own,
+            "matmul_ms": matmul, "other_ms": busy - own - matmul,
             "kernels": len(by_name),
             "top": [[k[:80], v] for k, v in top]}
 
@@ -698,50 +733,67 @@ def time_flash(window, seed: int):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "useful_gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
-def serving_path(cfg):
-    """Phase 6: ``cfg`` whole behind ``serve.Engine`` with every launch
-    counter set to 0 just before and read just after, the run's checks, and
-    the flash kernel held to its plain version on the q / k / v the run
-    captured.  Returns the launches, those comparisons' errors and the
-    run's end-to-end numbers."""
+def serve_whole(cfg, package, name: str, capture):
+    """``cfg`` whole behind ``serve.Engine``: weights drawn on the card,
+    ``capture`` standing in for ``package.<name>`` (the port's kernel
+    entry the model calls) during the run, every launch counter set to 0
+    just before the run and read just after, and the run's checks: every
+    completion ok, every decode on its session's cell, every logit finite,
+    the failed cell's sessions re-prefilled, placements through
+    ``affinity_valid``.  Returns the model, the engine, the runner, the
+    scheduling us per request and the launches."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    capture = FlashCapture()
-    fa.flash_attention = capture
+    setattr(package, name, capture)
     for k in ALL_KERNELS:
         k.launches = 0
     try:
         eng, runner, sched_us, victim, moved, stayed = drive_serving(cfg,
                                                                      model)
     finally:
-        fa.flash_attention = capture.kernel
-    serve_launches = {k.name: k.launches for k in ALL_KERNELS}
+        setattr(package, name, capture.kernel)
+    launches = {k.name: k.launches for k in ALL_KERNELS}
     n_prefills = len(runner.prefill_s)
     bad = [c for c in eng.completions if not c.ok]
     if bad or not stayed or not runner.finite:
-        raise AssertionError(f"serving path: {len(bad)} failed completions,"
-                             f" decodes on their session's cell: {stayed}, "
-                             f"logits finite: {runner.finite}")
+        raise AssertionError(f"serving {cfg.name}: {len(bad)} failed "
+                             f"completions, decodes on their session's cell:"
+                             f" {stayed}, logits finite: {runner.finite}")
     if not moved or victim is None or n_prefills != SESSIONS + len(moved):
-        raise AssertionError(f"serving path: failing {victim} moved {moved};"
-                             f" {n_prefills} prefills ran")
-    if serve_launches["flash_attention"] != cfg.n_layers * n_prefills or \
-            serve_launches["affinity_valid"] == 0:
-        raise AssertionError(f"serving path launches {serve_launches} for "
-                             f"{n_prefills} prefills of {cfg.n_layers} "
-                             "layers")
+        raise AssertionError(f"serving {cfg.name}: failing {victim} moved "
+                             f"{moved}; {n_prefills} prefills ran")
+    if launches["affinity_valid"] == 0:
+        raise AssertionError(f"serving {cfg.name}: no placement reached "
+                             f"affinity_valid ({launches})")
     print(f"serving path: {cfg.name} whole ({cfg.n_layers} layers, "
           f"{n_params / 1e9:.3f} B parameters, bf16, drawn on the card in "
           f"{init_s:.2f} s) behind serve.Engine on {len(two_pod_cells())} "
           f"cells; {SESSIONS} prefills of {PROMPT} tokens, {DECODES} decodes"
           f", cell {victim} failed before decode {FAIL_AT} (re-prefilled "
           f"{moved}); {len(eng.completions)} completions ok, decodes on "
-          f"their session's cell, logits finite; launches {serve_launches} "
+          f"their session's cell, logits finite; launches {launches} "
           f"({n_prefills} prefills x {cfg.n_layers})", flush=True)
+    return model, eng, runner, sched_us, launches
+
+
+def serving_path(cfg):
+    """Phase 6: ``cfg`` whole behind ``serve.Engine`` (:func:`serve_whole`),
+    the flash counter checked at one launch per layer and prefill, and the
+    flash kernel held to its plain version on the q / k / v the run
+    captured.  Returns the launches, those comparisons' errors and the
+    run's end-to-end numbers."""
+    capture = FlashCapture()
+    model, eng, runner, sched_us, serve_launches = serve_whole(
+        cfg, fa, "flash_attention", capture)
+    n_prefills = len(runner.prefill_s)
+    if serve_launches["flash_attention"] != cfg.n_layers * n_prefills:
+        raise AssertionError(f"serving path launches {serve_launches} for "
+                             f"{n_prefills} prefills of {cfg.n_layers} "
+                             "layers")
     # the outputs are softmax means of v over up to 4096 keys, far smaller
     # than the bf16 tolerance: the same inputs widened to float32 are held
     # at the float32 tolerance, and the outputs' median size is printed
@@ -760,8 +812,21 @@ def serving_path(cfg):
           f"on the same inputs in float32 (tolerance "
           f"{FLASH_TOL[torch.float32]}); median |output| {median_out}",
           flush=True)
-    # where a prefill's and a decode step's time goes on the card
-    tokens = gemma_prompt("s0", cfg.vocab)
+    serving = serving_numbers(cfg, model, runner, sched_us, "flash_fwd",
+                              "flash")
+    serving["flash_vs_plain_main_path"] = {
+        "bf16": main_err, "float32": main_err_f32,
+        "median_abs_output": median_out}
+    return serve_launches, main_err, serving
+
+
+def serving_numbers(cfg, model, runner, sched_us, marker: str, label: str):
+    """A serving run's end-to-end numbers (prefill ms and tokens/s, decode
+    ms per token, scheduling us per request, peak memory) and where one
+    prefill's and one decode step's time goes on the card
+    (:func:`device_breakdown`, the port's kernel picked out by
+    ``marker``)."""
+    tokens = session_prompt("s0", cfg.vocab)
     prefill = make_prefill_step(cfg, impl="flash")
     state = {"cache": init_cache(cfg, 1, MAX_LEN)}
     tok = tokens[:, -1:]
@@ -772,8 +837,9 @@ def serving_path(cfg):
                                                   tok)
 
     breakdown = {"prefill": device_breakdown(
-                     lambda: prefill(model, {"tokens": tokens})),
-                 "decode": device_breakdown(decode, iters=8)}
+                     lambda: prefill(model, {"tokens": tokens}), marker,
+                     label),
+                 "decode": device_breakdown(decode, marker, label, iters=8)}
     prefill_ms = [t * 1e3 for t in runner.prefill_s]
     decode_ms = [t * 1e3 for t in runner.decode_s]
     serving = {
@@ -787,11 +853,176 @@ def serving_path(cfg):
         "sched_us_per_request_mean": statistics.mean(sched_us),
         "requests": len(sched_us),
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "flash_vs_plain_main_path": {"bf16": main_err, "float32": main_err_f32,
-                                     "median_abs_output": median_out},
         "breakdown": breakdown}
-    return serve_launches, main_err, serving
+    return serving
 
+
+
+# --------------------------------------------------------------------------- #
+# the selective scan and the SSM serving path
+# --------------------------------------------------------------------------- #
+
+#: (B, S, D, N, dtype): the four shapes of tests/test_kernels.py's sweep,
+#: S and D off the kernel's 64-step chunk and 32-channel tile, N of 1 and
+#: 32, and bfloat16 inputs (dt, x, b, c; a is always float32)
+SCAN_CASES = [
+    (2, 64, 32, 4, "float32"),
+    (1, 100, 48, 16, "float32"),
+    (2, 128, 64, 8, "float32"),
+    (1, 48, 16, 2, "float32"),
+    (2, 333, 1000, 16, "float32"),
+    (1, 257, 97, 1, "float32"),
+    (1, 200, 130, 32, "float32"),
+    (1, 300, 520, 16, "bfloat16"),
+    (2, 129, 64, 32, "bfloat16"),
+]
+
+
+def scan_inputs(B, S, D, N, dtype: str, seed: int):
+    """Seeded inputs on the card, drawn as tests/test_kernels.py draws them:
+    dt = 0.1 softplus(normal), x, b, c normal, a = -exp(normal) [D, N]
+    float32; dt, x, b, c rounded to ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    randn = functools.partial(torch.randn, generator=g, device="cuda")
+    dt = 0.1 * torch.nn.functional.softplus(randn((B, S, D)))
+    x, b, c = randn((B, S, D)), randn((B, S, N)), randn((B, S, N))
+    a = -torch.exp(randn((D, N)))
+    dt_type = getattr(torch, dtype)
+    return (*(t.to(dt_type) for t in (dt, x, b, c)), a)
+
+
+def compare_scan(dt, x, b, c, a, *, relative: bool = False):
+    """The scan kernel against its plain version on the same card inputs;
+    raises past SCAN_TOL (times max(1, max |y|) when ``relative``) and
+    returns the largest difference and the plain output's largest and
+    median |value|."""
+    got = ms.selective_scan(dt, x, b, c, a)
+    want = ms.selective_scan_ref(dt, x, b, c, a)
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError("selective_scan returned another dtype or "
+                             "shape than its plain version")
+    err = max_abs_err(got, want)
+    top = float(want.abs().max())
+    tol = SCAN_TOL * (max(1.0, top) if relative else 1.0)
+    if not err <= tol:
+        raise AssertionError(
+            f"selective_scan differs from its plain version by {err} (bound "
+            f"{tol}) at dt {tuple(dt.shape)} {dt.dtype}, x {x.dtype}, b "
+            f"{tuple(b.shape)} {b.dtype}")
+    return err, top, float(want.abs().median())
+
+
+class ScanCapture:
+    """Stands in for the package's ``selective_scan`` during the serving
+    run and keeps the inputs of its first call (the first layer of the
+    first prefill); every call goes on to the kernel."""
+
+    def __init__(self):
+        self.kernel = ms.selective_scan
+        self.first = None
+
+    def __call__(self, *args, **kw):
+        if self.first is None:
+            self.first = args
+        return self.kernel(*args, **kw)
+
+
+def ssm_serving_path(cfg):
+    """Phase 9: ``cfg`` (falcon-mamba-7b) whole behind ``serve.Engine``
+    (:func:`serve_whole`), the scan counter checked at one launch per layer
+    and prefill and the flash counter at none, and the scan kernel held to
+    its plain version on the first layer's inputs from the first live
+    prefill.  Returns the launches, that comparison's error and the run's
+    end-to-end numbers."""
+    capture = ScanCapture()
+    model, eng, runner, sched_us, launches = serve_whole(
+        cfg, ms, "selective_scan", capture)
+    n_prefills = len(runner.prefill_s)
+    if launches["selective_scan"] != cfg.n_layers * n_prefills or \
+            launches["flash_attention"] != 0:
+        raise AssertionError(f"SSM serving path launches {launches} for "
+                             f"{n_prefills} prefills of {cfg.n_layers} "
+                             "mamba layers")
+    dt, x, b, c, a = capture.first
+    err, top, median = compare_scan(dt, x, b, c, a, relative=True)
+    print(f"selective_scan vs plain at the serving path's inputs (the first "
+          f"layer of the first prefill: dt {tuple(dt.shape)} {dt.dtype}, x "
+          f"{x.dtype}, b / c {tuple(b.shape)} {b.dtype}, a {tuple(a.shape)}):"
+          f" max abs err {err} (bound {SCAN_TOL} x max(1, {top})); median "
+          f"|output| {median}", flush=True)
+    capture.first = None
+    serving = serving_numbers(cfg, model, runner, sched_us,
+                              "selective_scan_fwd", "scan")
+    serving["scan_vs_plain_main_path"] = {
+        "max_abs_err": err, "max_abs_output": top,
+        "median_abs_output": median}
+    return launches, err, serving
+
+
+def ssm_model_f32(base):
+    """falcon-mamba-7b at full width with SSM_F32_LAYERS layers in float32:
+    the logits at every position of an F32_PROMPT-token prefill through the
+    scan kernel against the same model with the scan on
+    ``backend="ref"``, on the same card and weights.  Returns the largest
+    difference, the largest logit and the kernel's launches."""
+    cfg = dataclasses.replace(base, n_layers=SSM_F32_LAYERS, dtype="float32")
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(1))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, F32_PROMPT),
+                                     generator=g, device="cuda")}
+
+    def logits():
+        with torch.no_grad():
+            return lm_logits(cfg, model, model_forward(cfg, model, batch))
+
+    ms.SELECTIVE_SCAN_KERNEL.launches = 0
+    kern = logits()
+    launches = ms.SELECTIVE_SCAN_KERNEL.launches
+    scan = ms.selective_scan
+    ms.selective_scan = functools.partial(scan, backend="ref")
+    try:
+        plain = logits()
+    finally:
+        ms.selective_scan = scan
+    torch.cuda.synchronize()
+    err = max_abs_err(kern, plain)
+    top = float(plain.abs().max())
+    if not err <= SCAN_TOL * max(1.0, top) or launches != cfg.n_layers:
+        raise AssertionError(f"float32 falcon-mamba-7b: kernel vs plain scan "
+                             f"logits differ by {err} (bound {SCAN_TOL} x "
+                             f"max(1, {top})), {launches} scan launches")
+    return err, top, launches
+
+
+def time_scan(seed: int):
+    """The scan kernel at the serving path's shape (1, 4096, 8192, 16) with
+    its types (dt float32, x / b / c bf16, a float32): CUDA-event ms per
+    call, profiler device ms, the plain version's ms (a Python loop of 4096
+    steps: a few calls only) and the bound: the larger of every input read
+    once and y written once over HBM, and the recurrence's float32
+    operations (7 per (t, d, n): dt a, exp, abar h, (dt x) b, the add, h c,
+    the sum over n; 1 per (t, d): dt x) at the CUDA cores' float32 rate.
+    No single PyTorch call computes a selective scan, so there is no
+    library time."""
+    B, S, D, N = 1, PROMPT, 2 * FALCON_MAMBA_7B.d_model, \
+        FALCON_MAMBA_7B.ssm.d_state
+    dt, x, b, c, a = scan_inputs(B, S, D, N, "float32", seed)
+    x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
+    kern = lambda: ms.selective_scan(dt, x, b, c, a)  # noqa: E731
+    plain = lambda: ms.selective_scan_ref(dt, x, b, c, a)  # noqa: E731
+    nbytes = sum(t.numel() * t.element_size() for t in (dt, x, b, c, a)) \
+        + B * S * D * 4
+    flops = B * S * D * (7 * N + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return {"shape": [B, S, D, N], "types": "dt f32, x/b/c bf16, a f32",
+            "ms": cuda_ms(kern, iters=50, warmup=5),
+            "device_ms": device_ms(kern, iters=20),
+            "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+            "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
 
 # --------------------------------------------------------------------------- #
@@ -844,6 +1075,12 @@ def main() -> int:
           f"{flash_err[torch.bfloat16]} in bfloat16 (tolerance "
           f"{FLASH_TOL[torch.bfloat16]}) at (B, Sq, Skv, H, K, hd, causal, "
           f"window) = {FLASH_CASES}", flush=True)
+    scan_err = 0.0
+    for i, (B, S, D, N, dtype) in enumerate(SCAN_CASES):
+        scan_err = max(scan_err, compare_scan(
+            *scan_inputs(B, S, D, N, dtype, seed=100 + i))[0])
+    print(f"selective_scan vs plain: max abs err {scan_err} (tolerance "
+          f"{SCAN_TOL}) at (B, S, D, N, dtype) = {SCAN_CASES}", flush=True)
 
     # 4. the decision path at full size, held to the float64 twin
     plat = build_rig(WORKERS)  # device="cuda", the default
@@ -935,6 +1172,33 @@ def main() -> int:
               f"{tuple(t['shape'])} bf16: {json.dumps(t)}", flush=True)
     print(f"serving end to end {tag}: {json.dumps(serving)}", flush=True)
 
+    # 9. the SSM serving path: gemma3-4b's weights freed, falcon-mamba-7b
+    # whole behind the same engine and deployment
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory before falcon-mamba-7b: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated",
+          flush=True)
+    ssm_cfg = FALCON_MAMBA_7B
+    ssm_launches, scan_live_err, ssm_serving = ssm_serving_path(ssm_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. the SSM model at full width in float32: kernel vs plain scan
+    s32_err, s32_scale, s32_launches = ssm_model_f32(ssm_cfg)
+    print(f"whole model, float32: falcon-mamba-7b with n_layers="
+          f"{SSM_F32_LAYERS} (full width), S = {F32_PROMPT}; logits at every "
+          f"position via the scan kernel vs backend='ref': max abs err "
+          f"{s32_err} (bound {SCAN_TOL} x max(1, {s32_scale})); "
+          f"{s32_launches} scan launches", flush=True)
+
+    # 11. SSM times
+    scan_t = time_scan(seed=14)
+    print(f"time {tag}: selective_scan at {tuple(scan_t['shape'])} "
+          f"({scan_t['types']}): {json.dumps(scan_t)}", flush=True)
+    print(f"SSM serving end to end {tag}: {json.dumps(ssm_serving)}",
+          flush=True)
+
     rows = []
     for k in KERNELS:
         name = k.name
@@ -960,6 +1224,17 @@ def main() -> int:
                      key: flash_t["window1024"][key] for key in (
                          "ms", "device_ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by")}})
+    k = ms.SELECTIVE_SCAN_KERNEL
+    rows.append({"name": k.name, "route": "cuda",
+                 "source": str(k.source.relative_to(ROOT)),
+                 "replaces": REPLACES[k.name],
+                 "launches": ssm_launches[k.name],
+                 "max_abs_err": max(scan_err, scan_live_err),
+                 "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
+                 "bound_ms": scan_t["bound_ms"],
+                 "bound_by": scan_t["bound_by"], "library_ms": None,
+                 "device_ms": scan_t["device_ms"],
+                 "shape": scan_t["shape"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

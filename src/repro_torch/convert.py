@@ -119,9 +119,11 @@ def lm_params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
     port's flat layer list takes group g, position p as layer
     ``g * period + p`` and the tail after them.  ``lm_head`` is present
     only without ``tie_embeddings``.  Names, shapes and the set of leaves
-    must match the port's parameters exactly, or it raises."""
+    must match the port's parameters exactly, or it raises.  Each leaf takes
+    the dtype of the port's parameter of that name: the model's dtype, but
+    float32 for a mamba block's ``a_log`` and ``d_skip``, as in the
+    reference."""
     from .kernels.affinity.ops import resolve_device
-    from .models.layers import dtype_of
     from .models.transformer import LM, check_supported
 
     check_supported(cfg)
@@ -139,7 +141,8 @@ def lm_params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
     for t in range(cfg.n_tail):
         _flatten(f"layers.{n_stacked + t}", tree["tail"][t], flat)
     model = LM(cfg, generator=None, device="meta")
-    want = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    params = dict(model.named_parameters())
+    want = {k: tuple(p.shape) for k, p in params.items()}
     got = {k: tuple(v.shape) for k, v in flat.items()}
     if want != got:
         raise ValueError(
@@ -147,9 +150,9 @@ def lm_params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
             f"{sorted(want.keys() - got.keys())}, unexpected "
             f"{sorted(got.keys() - want.keys())}, shapes differ at "
             f"{sorted(k for k in want.keys() & got.keys() if want[k] != got[k])}")
-    dt = dtype_of(cfg.dtype)
     for key, arr in flat.items():
         owner, _, name = key.rpartition(".")
         setattr(model.get_submodule(owner), name, torch.nn.Parameter(
-            _tensor(arr).to(device=dev, dtype=dt), requires_grad=False))
+            _tensor(arr).to(device=dev, dtype=params[key].dtype),
+            requires_grad=False))
     return model

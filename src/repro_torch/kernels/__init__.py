@@ -5,7 +5,6 @@ version (the CPU path and the yardstick on the card):
   bulk decide pass (CUDA C++, ``affinity/csrc/``)
 * flash_attention — the causal / sliding-window GQA attention forward of
   the model-serving path (CUDA C++, ``flash_attention/csrc/``)
-
-The reference's mamba-scan Pallas kernel belongs to the SSM/hybrid slice
-(``ROADMAP.md``, Queue 2).
+* mamba_scan — the mamba-1 selective scan of the SSM prefill (CUDA C++,
+  ``mamba_scan/csrc/``)
 """

@@ -29,9 +29,12 @@ def dtype_of(name: str) -> torch.dtype:
 def normal_param(shape, dtype, *, generator: torch.Generator, device,
                  scale: Optional[float] = None) -> nn.Parameter:
     """A normal draw scaled by ``1/sqrt(fan_in)`` (or ``scale``), made in
-    float32 on ``device`` from ``generator`` and cast to ``dtype``."""
+    float32 on ``device`` from ``generator`` and cast to ``dtype``.  A
+    ``fan_in`` of 0 (a zero-width FFN's ``w_down``) gives the empty
+    parameter, as the reference does."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    if scale is None:
+        scale = 1.0 / math.sqrt(fan_in) if fan_in else 1.0
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
     return nn.Parameter(w.mul_(scale).to(dtype), requires_grad=False)

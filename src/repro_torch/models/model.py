@@ -1,7 +1,7 @@
-"""Family dispatch: one entry point per model operation.  The dense and vlm
-families run; the ssm, hybrid and moe families raise
-``NotImplementedError`` until the SSM/hybrid slice, and enc-dec until its
-own slice (``ROADMAP.md``)."""
+"""Family dispatch: one entry point per model operation.  The dense, vlm
+and ssm families run; the hybrid and moe families raise
+``NotImplementedError`` until the MoE slice, and enc-dec until its own
+slice (``ROADMAP.md``)."""
 from __future__ import annotations
 
 import torch

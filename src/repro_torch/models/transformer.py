@@ -1,13 +1,14 @@
-"""Decoder-only LM for the dense and vlm families: the layer stack, prefill
-(``lm_forward``), logits, and decode against linear, ring and buffered
-caches.
+"""Decoder-only LM for the dense, vlm and ssm families: the layer stack,
+prefill (``lm_forward``), logits, and decode against linear, ring and
+buffered attention caches and mamba conv / state caches.
 
 The reference stacks layers ``[G, ...]`` per period position and scans over
 groups; the port keeps one flat :class:`torch.nn.ModuleList` in execution
 order instead: group g, period position p is layer ``g * period + p``, and
 the ``n_tail`` tail layers follow with ``layer_kind(p)`` of their own index
-p.  So layer i always has period position ``i % period``.  Mamba layers and
-MoE FFNs belong to the SSM/hybrid slice and raise ``NotImplementedError``.
+p.  So layer i always has period position ``i % period``.  MoE FFNs (and
+with them the hybrid and moe families) belong to the MoE slice and raise
+``NotImplementedError``.
 ``remat`` is a training knob; the serving path runs under
 ``torch.no_grad()`` and ignores it.
 """
@@ -26,10 +27,11 @@ from .attention import (attention, cache_insert, decode_attention,
                         ring_slot_positions)
 from .layers import (MLP, Embed, Norm, apply_rope, dtype_of, normal_param,
                      const_param)
+from .ssm import Mamba, init_mamba_state, mamba_decode_step, mamba_forward
 
-NOT_PORTED = ("{what} is not ported yet: it comes with the SSM/hybrid slice "
-              "(ROADMAP.md, Queue 1: models/ssm.py, models/moe.py and the "
-              "mamba selective-scan kernel)")
+NOT_PORTED = ("{what} is not ported yet: it comes with the MoE slice "
+              "(ROADMAP.md, Queue 1: models/moe.py, the jamba hybrid and the "
+              "MoE configs)")
 
 
 # --------------------------------------------------------------------------- #
@@ -69,9 +71,10 @@ class Attention(nn.Module):
 
 
 class Layer(nn.Module):
-    """One pre-norm block: ``ln1``, attention (``attn``), ``ln2``, dense
-    FFN (``mlp``).  ``kind`` is ``attn`` (global) or ``local`` (sliding
-    window)."""
+    """One pre-norm block: ``ln1``, the mixer, ``ln2``, dense FFN
+    (``mlp``).  ``kind`` is ``attn`` (global) or ``local`` (sliding window),
+    with attention (``attn``) as the mixer, or ``mamba``, with the SSM block
+    (``ssm``)."""
 
     def __init__(self, cfg: ModelConfig, p: int, *, generator, device):
         super().__init__()
@@ -79,7 +82,12 @@ class Layer(nn.Module):
         self.kind = cfg.layer_kind(p)
         self.ln1 = Norm(cfg.d_model, cfg.norm_type, cfg.norm_eps, dt, device)
         self.ln2 = Norm(cfg.d_model, cfg.norm_type, cfg.norm_eps, dt, device)
-        self.attn = Attention(cfg, dt, generator=generator, device=device)
+        if self.kind == "mamba":
+            self.ssm = Mamba(cfg.d_model, cfg.ssm, dt, generator=generator,
+                             device=device)
+        else:
+            self.attn = Attention(cfg, dt, generator=generator,
+                                  device=device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, dt,
                        generator=generator, device=device)
 
@@ -108,13 +116,9 @@ class LM(nn.Module):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run:
-    mamba layers, MoE FFNs (and with them the ssm, hybrid and moe
-    families)."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    MoE FFNs (and with them the hybrid and moe families)."""
     for p in range(cfg.period):
-        if cfg.layer_kind(p) == "mamba":
-            raise NotImplementedError(NOT_PORTED.format(
-                what=f"{cfg.name}'s mamba layers"))
         if cfg.ffn_kind(p) != "dense":
             raise NotImplementedError(NOT_PORTED.format(
                 what=f"{cfg.name}'s MoE FFNs"))
@@ -138,6 +142,10 @@ def _rope_theta(cfg: ModelConfig, kind: str) -> float:
 
 def _apply_layer(cfg: ModelConfig, layer: Layer, x, positions, impl):
     h = layer.ln1(x)
+    if layer.kind == "mamba":
+        x = x + mamba_forward(layer.ssm, h, cfg.ssm,
+                              scan_dtype=cfg.ssm_scan_dtype)
+        return x + layer.mlp(layer.ln2(x))
     B, S, _ = h.shape
     q, k, v = layer.attn.qkv(h)
     theta = _rope_theta(cfg, layer.kind)
@@ -188,8 +196,10 @@ def lm_logits(cfg: ModelConfig, model: LM, hidden):
 def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device="cuda"):
     """Empty decode cache: one dict per layer in execution order (``k``,
     ``v``; ring caches of ``sliding_window`` slots on local layers; the
-    append buffers ``bk``, ``bv`` on global layers with ``decode_buffer``),
-    the next position ``pos`` and, with ``decode_buffer``, ``cache_len``."""
+    append buffers ``bk``, ``bv`` on global layers with ``decode_buffer``;
+    ``conv`` [B, di, kw-1] in the model's dtype and ``h`` [B, di, N] in
+    float32 on mamba layers), the next position ``pos`` and, with
+    ``decode_buffer``, ``cache_len``."""
     check_supported(cfg)
     dt = dtype_of(cfg.dtype)
     hd = cfg.resolved_head_dim
@@ -197,6 +207,9 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device="cuda"):
 
     def one(p):
         kind = cfg.layer_kind(p)
+        if kind == "mamba":
+            conv, h = init_mamba_state(B, cfg.d_model, cfg.ssm, dt, device)
+            return {"conv": conv, "h": h}
         L = cfg.sliding_window if kind == "local" else max_len
         lc = {"k": torch.zeros(shape(L), dtype=dt, device=device),
               "v": torch.zeros(shape(L), dtype=dt, device=device)}
@@ -217,6 +230,11 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device="cuda"):
 def _decode_layer(cfg: ModelConfig, layer: Layer, lc, x, pos: int,
                   cache_len: Optional[int]):
     h = layer.ln1(x)
+    if layer.kind == "mamba":
+        y, (lc["conv"], lc["h"]) = mamba_decode_step(
+            layer.ssm, h, (lc["conv"], lc["h"]), cfg.ssm)
+        x = x + y
+        return x + layer.mlp(layer.ln2(x))
     B = x.shape[0]
     q, k, v = layer.attn.qkv(h)
     theta = _rope_theta(cfg, layer.kind)
@@ -249,8 +267,9 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, lc, x, pos: int,
 
 def lm_decode_step(cfg: ModelConfig, model: LM, cache, token):
     """token [B, 1] -> (logits [B, vocab] f32, new cache).  The cache's
-    tensors are written in place; the returned cache (its ``pos`` one
-    further) replaces the one passed in."""
+    tensors are written in place (a mamba layer's ``conv`` and ``h`` are
+    replaced in its dict); the returned cache (its ``pos`` one further)
+    replaces the one passed in."""
     x = model.embed(token)
     pos = cache["pos"]
     cache_len = cache.get("cache_len")

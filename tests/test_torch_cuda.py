@@ -1,9 +1,10 @@
 """The port on the card: each affinity kernel against its plain PyTorch
 version on the same card inputs (bit for bit, no tolerance), the main path
 through the kernels against the same path through the plain versions on
-the CPU, and the flash-attention kernel against its plain version within
+the CPU, the flash-attention kernel against its plain version within
 the tolerances of ``tests/test_kernels.py`` (float32 2e-5, bfloat16
-5e-2).  Every test here needs an NVIDIA GPU and skips without one; the
+5e-2), and the selective-scan kernel against its plain version within that
+file's 1e-4.  Every test here needs an NVIDIA GPU and skips without one; the
 module imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch built for CUDA."""
 import pytest
@@ -11,6 +12,7 @@ import torch
 
 import chip_smoke
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels.affinity import affinity_valid, bulk_decide
 from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref
 from repro_torch.kernels.affinity.ref import affinity_valid_ref
@@ -67,3 +69,31 @@ def test_flash_attention_refuses_an_unsupported_head_dim_on_the_card(card):
     q = torch.zeros((1, 8, 2, 96), device="cuda")
     with pytest.raises(ValueError, match="head_dim 96"):
         fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+@pytest.mark.parametrize("case", chip_smoke.SCAN_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_selective_scan_equals_its_plain_version_on_the_card(card, case):
+    """The sweep shapes of tests/test_kernels.py, a ragged S and D, N of 1
+    and 32, bfloat16 inputs; each launch counted."""
+    B, S, D, N, dtype = case
+    ins = chip_smoke.scan_inputs(B, S, D, N, dtype, seed=S + D)
+    before = ms.SELECTIVE_SCAN_KERNEL.launches
+    err = chip_smoke.compare_scan(*ins)[0]
+    assert err <= chip_smoke.SCAN_TOL
+    assert ms.SELECTIVE_SCAN_KERNEL.launches == before + 1
+
+
+def test_selective_scan_takes_mixed_types_on_the_card(card):
+    """dt in float32 and x, b, c in bfloat16, as the mamba block passes
+    them."""
+    dt, x, b, c, a = chip_smoke.scan_inputs(1, 300, 256, 16, "float32",
+                                            seed=3)
+    x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
+    assert chip_smoke.compare_scan(dt, x, b, c, a)[0] <= chip_smoke.SCAN_TOL
+
+
+def test_selective_scan_refuses_an_unsupported_state_size_on_the_card(card):
+    dt, x, b, c, a = chip_smoke.scan_inputs(1, 8, 32, 4, "float32", seed=0)
+    with pytest.raises(ValueError, match="state size N = 3"):
+        ms.selective_scan(dt, x, b[..., :3], c[..., :3], a[:, :3])

@@ -47,6 +47,7 @@ def test_a_fresh_interpreter_loads_no_jax_and_no_reference_module():
         "repro_torch.analysis, repro_torch.convert, "
         "repro_torch.kernels.affinity, repro_torch.configs, "
         "repro_torch.models, repro_torch.kernels.flash_attention, "
+        "repro_torch.kernels.mamba_scan, repro_torch.models.ssm, "
         "repro_torch.train.step, repro_torch.serve.engine, repro_torch.pool, "
         "repro_torch.cluster.topology, repro_torch.launch.serve, "
         "chip_smoke\n"

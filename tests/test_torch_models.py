@@ -224,7 +224,7 @@ def test_decode_pieces_equal_the_reference():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b",
-                                  "falcon-mamba-7b", "jamba-1.5-large-398b",
+                                  "jamba-1.5-large-398b",
                                   "seamless-m4t-large-v2"])
 def test_moe_ssm_and_encdec_raise_not_implemented(arch):
     cfg = ARCHS[arch].reduced()

@@ -5,10 +5,11 @@ same seeds and a shared fake clock; the port's decides on
 ``device="cpu"`` (the affinity kernels' plain versions).  A
 prefill / decode / train sequence with a cell failure in the middle must
 place every request on the same cell, relocate the same sessions, and,
-with a runner that decodes on reduced gemma3-4b (the reference's weights
-converted with ``lm_params_from_jax``), produce the same argmax tokens.
-Placements and tokens are compared for equality; the logits behind the
-tokens agree within 1e-4 (``tests/test_torch_models.py``)."""
+with a runner that decodes on reduced gemma3-4b or reduced falcon-mamba-7b
+(the reference's weights converted with ``lm_params_from_jax``), produce
+the same argmax tokens.  Placements and tokens are compared for equality;
+the logits behind the tokens agree within 1e-4
+(``tests/test_torch_models.py``, ``tests/test_torch_ssm.py``)."""
 import dataclasses
 import functools
 import warnings
@@ -36,6 +37,7 @@ from repro_torch.models import init_cache, model_decode_step  # noqa: E402
 from repro_torch.pool import WarmPool, make_policy  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 from test_torch_models import jax_params  # noqa: E402
+from test_torch_ssm import ssm_params  # noqa: E402
 
 ARCH = "gemma3-4b"
 DEPLOY = ["pod0-cell0", "pod0-cell1", "pod1-cell0"]
@@ -93,7 +95,7 @@ def port_runner(cfg, model, clock):
     return run
 
 
-def drive(engine_cls, request_cls, cells, runner, clock, **kw):
+def drive(engine_cls, request_cls, cells, runner, clock, arch=ARCH, **kw):
     """The sequence: deploy, a train stream, 4 sessions' prefills, 12
     decodes, the failure of session s0's cell, 8 more decodes, the train
     stream stopped, 2 decodes.  Returns every completion's (cell, ok,
@@ -102,18 +104,18 @@ def drive(engine_cls, request_cls, cells, runner, clock, **kw):
         warnings.simplefilter("ignore", DeprecationWarning)
         eng = engine_cls(cells, runner=runner, clock=lambda: clock[0],
                          heartbeat_timeout=1e9, seed=7, **kw)
-    eng.deploy(ARCH, DEPLOY, weights_gb=8)
+    eng.deploy(arch, DEPLOY, weights_gb=8)
     train = eng.submit(request_cls(model="", kind="train"))
     sessions = [f"s{i}" for i in range(4)]
     for s in sessions:
-        eng.submit(request_cls(model=ARCH, kind="prefill", session=s))
+        eng.submit(request_cls(model=arch, kind="prefill", session=s))
     order = np.random.default_rng(11).integers(0, 4, 22)
     for i, j in enumerate(order):
         if i == 12:
             eng.fail_cell(eng.session_cell("s0"))
         if i == 20:
             eng.stop(train.rid)
-        eng.submit(request_cls(model=ARCH, kind="decode",
+        eng.submit(request_cls(model=arch, kind="decode",
                                session=sessions[j]))
     return ([(c.cell, c.ok, c.result) for c in eng.completions],
             list(eng.relocations), [eng.session_cell(s) for s in sessions])
@@ -140,6 +142,27 @@ def test_engine_places_relocates_and_decodes_as_the_reference():
     completions, relocations, homes = got
     assert all(ok for _, ok, _ in completions)
     assert relocations  # the failed cell held a session
+    decodes = [r for _, _, r in completions if r is not None]
+    assert len(decodes) == 22 and len(set(decodes)) > 1
+
+
+def test_engine_serving_falcon_mamba_equals_the_reference():
+    """The SSM path behind the engine: reduced falcon-mamba-7b (two mamba
+    layers, float32) decoding through the conv / state caches."""
+    arch = "falcon-mamba-7b"
+    jcfg, tcfg = JAX_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    tree = ssm_params(jcfg, seed=0)
+    model = lm_params_from_jax(tcfg, tree, device="cpu")
+    params = jax.tree.map(jnp.asarray, tree)
+    jclock, tclock = [0.0], [0.0]
+    want = drive(JaxEngine, JaxRequest, jax_cells(),
+                 jax_runner(jcfg, params, jclock), jclock, arch=arch)
+    got = drive(Engine, Request, two_pod_cells(),
+                port_runner(tcfg, model, tclock), tclock, arch=arch,
+                device="cpu")
+    assert got == want
+    completions, relocations, homes = got
+    assert all(ok for _, ok, _ in completions) and relocations
     decodes = [r for _, _, r in completions if r is not None]
     assert len(decodes) == 22 and len(set(decodes)) > 1
 
@@ -176,3 +199,12 @@ def test_launch_serve_runs_on_the_cpu(capsys):
                      "3", "--fail-cell-at", "6", "--with-train-tenant"])
     out = capsys.readouterr().out
     assert "12 decodes over 3 sessions" in out and "failing cell" in out
+
+
+def test_launch_serve_runs_falcon_mamba_on_the_cpu(capsys):
+    port_serve.main(["--arch", "falcon-mamba-7b", "--device", "cpu",
+                     "--requests", "10", "--sessions", "3", "--fail-cell-at",
+                     "4"])
+    out = capsys.readouterr().out
+    assert "10 decodes over 3 sessions" in out and "failing cell" in out
+    assert "relocations=" in out and "relocations=0" not in out
