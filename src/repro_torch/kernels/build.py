@@ -23,8 +23,9 @@ from typing import Iterable, Optional, Sequence, Tuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
+#: ``-Xptxas -v``: each build's registers and spills, kept in ``build_log``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: the affinity kernels repeat the reference's float32 operations one by one
 #: (bit-exact against their plain versions), so nothing is contracted to FMA
 EXACT_FLAGS = NVCC_FLAGS + ("--fmad=false",)
@@ -43,9 +44,10 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One hand-written kernel: its source, its ctypes entry point, and the
+    """One hand-written kernel: its source, its ctypes entry point, the
     count of launches its wrapper made (``launches``, a plain integer the
-    wrapper bumps once per launch and nowhere else)."""
+    wrapper bumps once per launch and nowhere else), and the compiler's
+    output of the last build in this process (``build_log``)."""
 
     def __init__(self, name: str, source: str, entry: str,
                  argtypes: Sequence, headers: Iterable[str] = (),
@@ -57,6 +59,7 @@ class CudaKernel:
         self.entry = entry
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.build_log = ""
         self._fn = None
 
     def library_path(self) -> Path:
@@ -111,6 +114,7 @@ def build_all(kernels: Sequence[CudaKernel]) -> float:
             failures.append(f"{k.name} ({k.source}):\n{out}")
         else:
             os.replace(tmp, lib)
+            k.build_log = out
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0

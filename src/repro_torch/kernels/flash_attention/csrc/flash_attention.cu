@@ -1,5 +1,6 @@
 // flash_attention: causal / sliding-window / non-causal GQA attention
-// forward on Hopper, with the online softmax kept on chip.
+// forward on Hopper for float32 inputs, with the online softmax kept on
+// chip.  bf16 inputs go to flash_attention_sm90.cu (the tensor cores).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention/kernel.py
 // (_flash_kernel, entry flash_attention_padded), which walks a sequential
@@ -9,11 +10,10 @@
 //
 // What bounds it on this card: operations.  At the serving path's shape
 // (B = 1, S = 4096, H = 8, K = 4, hd = 256) the function reads q, k, v and
-// writes o once (~42 MB in bf16, ~13 us at 3.35 TB/s) but does
-// 4 S^2 H hd / 2 useful multiply-adds for a causal layer (~69 GFLOP, ~70 us
-// at the dense bf16 tensor rate).  This first kernel does its arithmetic in
-// float32 on the CUDA cores, so it sits far above that bound; the tensor
-// cores (mma / wgmma) are a later change.
+// writes o once (~100 MB in float32, ~30 us at 3.35 TB/s) but does
+// 4 S^2 H hd / 2 useful multiply-adds for a causal layer (~69 GFLOP, ~1 ms
+// at the CUDA cores' 67 TFLOP/s float32).  The arithmetic stays float32 on
+// the CUDA cores: a TF32 product would not hold the float32 tolerance.
 //
 // What the design does:
 //   * one CTA of 256 threads owns BQ = 64 query rows of one (batch, head);
@@ -21,9 +21,8 @@
 //     place of the TPU's sequential grid axis, so m, l and the accumulator
 //     stay in registers for the whole sweep and o is written once;
 //   * q (pre-scaled by 1/sqrt(hd), as the reference does), the k and v tiles
-//     and the probability tile are staged in shared memory as float32 (bf16
-//     inputs are widened on load; rows padded by 4 floats so the 16-byte
-//     loads of a quarter-warp hit distinct banks);
+//     and the probability tile are staged in shared memory (rows padded by
+//     4 floats so the 16-byte loads of a quarter-warp hit distinct banks);
 //   * GQA: q head h reads kv head h / (H / K);
 //   * masks: padding (q < Sq, kv < Skv), causal (kv <= q) and window
 //     (kv > q - window), applied per element inside a tile; key tiles that
@@ -37,9 +36,8 @@
 //     padding rows, which are not written back, may be such rows: the
 //     wrapper refuses a window that leaves a real query row no key
 //     (Sq >= Skv + window), where the plain version returns the mean of v;
-//   * o = acc / max(l, 1e-30), rounded to the input type once;
+//   * o = acc / max(l, 1e-30);
 //   * ragged Sq and Skv are masked in the kernel; nothing is padded.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,7 +58,7 @@ struct Smem {
   static constexpr size_t bytes = floats * sizeof(float);
 };
 
-// One 16-byte vector of the input type, widened to float32.
+// One 16-byte vector of the input type.
 template <typename T>
 struct Vec;
 
@@ -74,32 +72,6 @@ struct Vec<float> {
   }
   __device__ static void store4(float* dst, float4 v) {
     *reinterpret_cast<float4*>(dst) = v;
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* src, float* dst,
-                              float scale) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    float4 a, b;
-    float2 f;
-    f = __bfloat1622float2(h[0]); a.x = f.x * scale; a.y = f.y * scale;
-    f = __bfloat1622float2(h[1]); a.z = f.x * scale; a.w = f.y * scale;
-    f = __bfloat1622float2(h[2]); b.x = f.x * scale; b.y = f.y * scale;
-    f = __bfloat1622float2(h[3]); b.z = f.x * scale; b.w = f.y * scale;
-    *reinterpret_cast<float4*>(dst) = a;
-    *reinterpret_cast<float4*>(dst + 4) = b;
-  }
-  __device__ static void store4(__nv_bfloat16* dst, float4 v) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = raw;
   }
 };
 
@@ -349,24 +321,17 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
 
 // Plain C entry point (bound with ctypes).  q [B, Sq, H, hd], k / v
 // [B, Skv, K, hd] and o [B, Sq, H, hd] are device pointers of contiguous,
-// 16-byte aligned tensors of one type: dtype 0 = float32, 1 = bfloat16.
-// window <= 0 means no window.  Returns cudaGetLastError() after the launch
-// (0 on success); an unsupported hd or dtype returns cudaErrorInvalidValue.
+// 16-byte aligned float32 tensors.  window <= 0 means no window.  Returns
+// cudaGetLastError() after the launch (0 on success); an unsupported hd
+// returns cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int64_t B,
                                       int64_t Sq, int64_t Skv, int64_t H,
                                       int64_t K, int64_t hd, int64_t causal,
-                                      int64_t window, int64_t dtype,
-                                      cudaStream_t stream) {
+                                      int64_t window, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaGetLastError();
   if (K <= 0 || H % K != 0 || Skv < 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return flash::dispatch_hd<float>(q, k, v, o, (int)B, (int)Sq, (int)Skv,
-                                     (int)H, (int)K, (int)hd, (int)causal,
-                                     (int)window, stream);
-  if (dtype == 1)
-    return flash::dispatch_hd<__nv_bfloat16>(
-        q, k, v, o, (int)B, (int)Sq, (int)Skv, (int)H, (int)K, (int)hd,
-        (int)causal, (int)window, stream);
-  return (int)cudaErrorInvalidValue;
+  return flash::dispatch_hd<float>(q, k, v, o, (int)B, (int)Sq, (int)Skv,
+                                   (int)H, (int)K, (int)hd, (int)causal,
+                                   (int)window, stream);
 }

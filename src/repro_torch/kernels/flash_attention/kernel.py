@@ -1,10 +1,12 @@
-"""CUDA kernel for flash attention (``csrc/flash_attention.cu``).
+"""CUDA kernels for flash attention: ``csrc/flash_attention_sm90.cu`` for
+bfloat16 inputs (tensor cores: wgmma, TMA) and ``csrc/flash_attention.cu``
+for float32 inputs (CUDA cores); :func:`choose_kernel` picks one.
 
-The Hopper counterpart of the reference's Pallas kernel
+The Hopper counterparts of the reference's Pallas kernel
 (``repro/kernels/flash_attention/kernel.py::_flash_kernel``): the same
 online-softmax forward over key tiles, with the ragged Sq / Skv edges masked
 in the kernel instead of padded to 512-row blocks, and the key tiles that
-the causal or window mask leaves empty never visited.  The source's header
+the causal or window mask leaves empty never visited.  Each source's header
 note says what bounds it.
 
 :func:`flash_attention_kernel` takes CUDA tensors only; the public wrapper
@@ -22,28 +24,47 @@ from ..build import NVCC_FLAGS, CudaKernel
 
 _P, _N = ctypes.c_void_p, ctypes.c_int64
 HEAD_DIMS = (64, 128, 256)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
 
+#: float32 inputs: float32 math on the CUDA cores
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention/csrc/flash_attention.cu",
     entry="flash_attention_launch",
-    # q k v o, B Sq Skv H K hd causal window dtype, stream
-    argtypes=[_P] * 4 + [_N] * 9 + [_P],
+    # q k v o, B Sq Skv H K hd causal window, stream
+    argtypes=[_P] * 4 + [_N] * 8 + [_P],
     flags=NVCC_FLAGS)
+#: bfloat16 inputs: bf16 products on the tensor cores, float32 softmax and
+#: accumulators
+KERNEL_BF16 = CudaKernel(
+    "flash_attention_bf16", "flash_attention/csrc/flash_attention_sm90.cu",
+    entry="flash_attention_bf16_launch",
+    # q k v o, B Sq Skv H K hd causal window, stream
+    argtypes=[_P] * 4 + [_N] * 8 + [_P],
+    flags=NVCC_FLAGS)
+
+
+def choose_kernel(dtype: torch.dtype, hd: int) -> CudaKernel:
+    """The kernel for inputs of ``dtype`` and head dim ``hd``: bfloat16 to
+    the tensor-core kernel, float32 to the CUDA-core one; any other dtype or
+    head dim raises."""
+    if dtype not in DTYPES:
+        raise TypeError(f"q, k, v must be float32 or bfloat16, got {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not supported by the kernel "
+                         f"(one of {HEAD_DIMS})")
+    return KERNEL_BF16 if dtype == torch.bfloat16 else KERNEL
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: Optional[int]) -> None:
-    """What the kernel computes on, wherever the tensors lie: one supported
-    dtype, [B, Sq, H, hd] and [B, Skv, K, hd] with K dividing H, a head dim
-    of 64, 128 or 256, and a window of at least 1 that leaves every query
-    row a key.  (A row with no key gets the mean of all v from the plain
-    version's finite -1e30 mask; the kernel skips the tiles such a row
-    would need, so it is refused rather than answered differently.)"""
+    """What the kernel computes on, wherever the tensors lie: one dtype and
+    head dim that :func:`choose_kernel` takes, [B, Sq, H, hd] and
+    [B, Skv, K, hd] with K dividing H, and a window of at least 1 that
+    leaves every query row a key.  (A row with no key gets the mean of all
+    v from the plain version's finite -1e30 mask; the kernel skips the
+    tiles such a row would need, so it is refused rather than answered
+    differently.)"""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype not in DTYPES:
-            raise TypeError(f"{name} must be float32 or bfloat16, got "
-                            f"{t.dtype}")
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
     if not q.dtype == k.dtype == v.dtype:
@@ -56,9 +77,7 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K = k.shape[2]
     if K == 0 or H % K:
         raise ValueError(f"{H} query heads do not group over {K} kv heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not supported by the kernel "
-                         f"(one of {HEAD_DIMS})")
+    choose_kernel(q.dtype, hd)
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
     Skv = k.shape[1]
@@ -88,21 +107,21 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True,
                            window: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel on the current stream: q [B, Sq, H, hd], k / v
-    [B, Skv, K, hd] -> o [B, Sq, H, hd] in q's dtype (float32 or bfloat16,
-    accumulated in float32), for hd in 64, 128, 256."""
+    """Launch :func:`choose_kernel`'s kernel on the current stream:
+    q [B, Sq, H, hd], k / v [B, Skv, K, hd] -> o [B, Sq, H, hd] in q's dtype
+    (float32 or bfloat16, accumulated in float32), for hd in 64, 128, 256."""
     check_inputs(q, k, v, window)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
+    kern = choose_kernel(q.dtype, hd)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = KERNEL.fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     B, Sq, Skv, H, K, hd, int(bool(causal)),
-                     0 if window is None else int(window), DTYPES[q.dtype],
-                     stream)
+    rc = kern.fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   B, Sq, Skv, H, K, hd, int(bool(causal)),
+                   0 if window is None else int(window),
+                   torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    KERNEL.launches += 1
+        raise RuntimeError(f"{kern.name} launch failed: CUDA error {rc}")
+    kern.launches += 1
     return o

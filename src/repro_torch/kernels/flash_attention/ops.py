@@ -1,7 +1,8 @@
 """Public flash-attention entry: the route by device and the model-facing
-signature.  A CUDA tensor launches the hand-written kernel (:mod:`.kernel`);
-a CPU tensor, or ``backend="ref"``, runs the plain PyTorch version
-(:mod:`.ref`).  Nothing falls back: a CUDA launch that fails raises."""
+signature.  A CUDA tensor launches the hand-written kernel for its dtype
+(:func:`.kernel.choose_kernel`); a CPU tensor, or ``backend="ref"``, runs
+the plain PyTorch version (:mod:`.ref`).  Nothing falls back: a CUDA launch
+that fails raises."""
 from __future__ import annotations
 
 from .kernel import flash_attention_kernel

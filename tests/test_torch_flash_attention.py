@@ -162,3 +162,132 @@ def test_kernel_wrapper_refuses_what_the_kernel_cannot_take(
     with pytest.raises((ValueError, TypeError), match=match):
         fa_kernel.check_shapes(q, kv, kv, window)
 
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 64, "flash_attention_bf16"),
+    (torch.bfloat16, 128, "flash_attention_bf16"),
+    (torch.bfloat16, 256, "flash_attention_bf16"),
+    (torch.float32, 64, "flash_attention"),
+    (torch.float32, 128, "flash_attention"),
+    (torch.float32, 256, "flash_attention"),
+])
+def test_choose_kernel_routes_bf16_to_the_tensor_core_kernel(dtype, hd,
+                                                             kernel):
+    chosen = fa_kernel.choose_kernel(dtype, hd)
+    assert chosen.name == kernel
+    assert chosen in (fa_kernel.KERNEL, fa_kernel.KERNEL_BF16)
+
+
+@pytest.mark.parametrize("dtype,hd,error,match", [
+    (torch.float16, 128, TypeError, "float32 or bfloat16"),
+    (torch.float64, 64, TypeError, "float32 or bfloat16"),
+    (torch.int8, 256, TypeError, "float32 or bfloat16"),
+    (torch.bfloat16, 32, ValueError, "head_dim 32"),
+    (torch.bfloat16, 96, ValueError, "head_dim 96"),
+    (torch.float32, 512, ValueError, "head_dim 512"),
+])
+def test_choose_kernel_refuses_other_types_and_head_dims(dtype, hd, error,
+                                                         match):
+    with pytest.raises(error, match=match):
+        fa_kernel.choose_kernel(dtype, hd)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window,tile", [
+    (300, 300, True, None, 0),
+    (128, 384, False, None, 0),
+    # window 1: every tile is seen by its own 64 rows, the first wins
+    (300, 300, True, 1, 0),
+    # window 128 over 1000 keys: tiles 0-12 are seen by 191 rows each
+    (1000, 1000, True, 128, 0),
+    # Sq < Skv, causal under a window: tiles 0 and 1 are seen by 113 rows
+    # each (0-112, 64-176), tile 2 by 72
+    (200, 300, True, 50, 0),
+    # non-causal under a window: rows 0-162 see tile 0, all 200 rows see
+    # tiles 1 and 2, so the first of those is dropped
+    (200, 300, False, 100, 1),
+])
+def test_dropped_tile_is_the_one_most_rows_see(Sq, Skv, causal, window,
+                                               tile):
+    import chip_smoke
+
+    assert chip_smoke.dropped_tile(Sq, Skv, causal, window) == tile
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,tile", [
+    # the tile before the last row's diagonal tile (4, rows 256-299)
+    (300, 300, True, 3),
+    # Sq > Skv: the last row's diagonal is the last key, in tile 3
+    (300, 200, True, 2),
+    # Sq < Skv: the last row (199) sits in tile 3
+    (200, 300, True, 2),
+    # short rows: the diagonal tile is the first, so is the late one
+    (1, 1, True, 0),
+    (100, 100, True, 0),
+    # non-causal: every row sees the last (ragged) tile
+    (257, 100, False, 1),
+    (128, 384, False, 5),
+])
+def test_late_tile_is_before_the_last_rows_diagonal(Sq, Skv, causal, tile):
+    import chip_smoke
+
+    assert chip_smoke.late_tile(Sq, Skv, causal) == tile
+
+
+@pytest.mark.parametrize("hd", [256, 128])
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("part", ["whole", "late"])
+def test_bf16_tolerance_holds_p_rounding_and_sees_a_dropped_tile(hd, window,
+                                                                 part):
+    """The bf16 kernel's per-element tolerance
+    (``chip_smoke.flash_bf16_bound``) on the CPU: the port's chunked path on
+    bf16 inputs with 64-key chunks rounds p to bf16 before the product with
+    v and o at the end, where the kernel does, and every element sits within
+    its tolerance of the plain version on the inputs widened to float32;
+    the plain version with one 64-key tile of v zeroed moves some element
+    by more than 4x its tolerance (``flash_bf16_check`` raises otherwise).
+    ``whole``: the inputs as drawn, the first or most-seen tile dropped;
+    ``late``: v zeroed outside the tile before the last row's diagonal,
+    which is then dropped.  At hd = 128 the chunked path also rounds
+    q / sqrt(hd) to bf16 once, which the kernel does not."""
+    import chip_smoke
+
+    B, S, H, K = 1, 1000, 2, 1
+    _, (tq, tk, tv) = both(qkv(hd + (window or 0), B, S, S, H, K, hd),
+                           "bf16")
+    if part == "whole":
+        tile = chip_smoke.dropped_tile(S, S, True, window)
+    else:
+        tile = chip_smoke.late_tile(S, S, True)
+        tv = chip_smoke.tile_rows(tv, tile, keep=True)
+    pos = torch.arange(S, dtype=torch.int32)
+    got = port_attn.attention_chunked(tq, tk, tv, pos, pos, causal=True,
+                                      window=window, chunk=64)
+    assert got.dtype == torch.bfloat16
+    check = chip_smoke.flash_bf16_check(got, tq, tk, tv, True, window, tile)
+    assert 0 < check["max_abs_err"] and check["err_over_tol"] <= 1
+    assert check["drop_over_tol"] >= chip_smoke.FLASH_DROP
+    assert check["tile"] == tile
+
+
+@pytest.mark.parametrize("part", ["whole", "late"])
+def test_bf16_check_refuses_an_output_that_left_out_the_tile(part):
+    """An output computed with the control's tile of v left out (the
+    chunked path on v with that tile zeroed) fails ``flash_bf16_check``:
+    on the whole inputs for the first tile, and on v restricted to the late
+    tile for that tile."""
+    import chip_smoke
+
+    S, window = 1000, None
+    _, (tq, tk, tv) = both(qkv(7, 1, S, S, 2, 1, 256), "bf16")
+    if part == "whole":
+        tile = chip_smoke.dropped_tile(S, S, True, window)
+    else:
+        tile = chip_smoke.late_tile(S, S, True)
+        tv = chip_smoke.tile_rows(tv, tile, keep=True)
+    pos = torch.arange(S, dtype=torch.int32)
+    got = port_attn.attention_chunked(
+        tq, tk, chip_smoke.tile_rows(tv, tile, keep=False), pos, pos,
+        causal=True, window=window, chunk=64)
+    with pytest.raises(AssertionError, match="x the tolerance of an element"):
+        chip_smoke.flash_bf16_check(got, tq, tk, tv, True, window, tile)
