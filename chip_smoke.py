@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline-scan PATH]
 
 Phases, one line each (every time beside the card's name and power limit):
 
@@ -19,8 +19,12 @@ Phases, one line each (every time beside the card's name and power limit):
    bound, at ragged lengths, Sq != Skv, GQA ratios 1, 2, 4, head dims 64,
    128, 256, window 1 and a window past the sequence, causal with a window
    at Sq != Skv; the selective-scan kernel against its plain version within
-   1e-4 at the shapes of ``tests/test_kernels.py``'s sweep, a ragged S and
-   D, N of 1 and 32, and bfloat16 inputs;
+   1e-4 at the shapes of ``tests/test_kernels.py``'s sweep and around its
+   tiling (S below and across 64-step chunks, D off its 32-channel tile
+   and off a multiple of 8, every N, float32 and bfloat16 inputs), and on
+   a long memory (a = -0.01 exp(normal), S = 2085) within 1e-4
+   max(1, max |y|), where the plain version with the state reset at a
+   chunk boundary must miss by 100x that;
 4. decision path — the port's ``Platform`` on the reference scheduler-scale rig
    (16384 workers of 64 MB, 50% pre-occupied, 5% sparse warm residency):
    512 ``decide()`` calls, ``decide_batch`` waves of 512 with
@@ -68,7 +72,12 @@ Phases, one line each (every time beside the card's name and power limit):
    against ``backend="ref"`` on the card, within 1e-4 max(1, max |logit|);
 11. SSM times — the scan kernel at (1, 4096, 8192, 16) with the serving
    path's types (dt float32, x / b / c bf16): CUDA-event and profiler ms,
-   plain ms and the bound; falcon-mamba-7b's prefill ms and tokens/s,
+   plain ms, the bound and its share of the device time, the MUFU floor,
+   the kernel's registers, and where a call's time goes (the bare ctypes
+   entry, the checked kernel wrapper and the package entry, back to back,
+   by events and by host enqueue time); with ``--baseline-scan PATH`` an
+   earlier ``selective_scan.cu`` built and timed beside it, in turns, on
+   the same inputs; falcon-mamba-7b's prefill ms and tokens/s,
    decode ms per token, scheduling us per request, and where one prefill's
    and one decode step's time goes (scan kernel, matrix products, the
    rest, idle share);
@@ -1039,8 +1048,13 @@ def serving_numbers(cfg, model, runner, sched_us, marker: str, label: str):
 # --------------------------------------------------------------------------- #
 
 #: (B, S, D, N, dtype): the four shapes of tests/test_kernels.py's sweep,
-#: S and D off the kernel's 64-step chunk and 32-channel tile, N of 1 and
-#: 32, and bfloat16 inputs (dt, x, b, c; a is always float32)
+#: then shapes around the kernel's tiling (ms.kernel: chunks of CHUNK = 64
+#: steps, tiles of CHANNEL_TILE = 32 channels, groups of GROUP = 8 steps):
+#: S below one group, below one chunk, off a group and a chunk multiple
+#: over several chunks; D below one tile and off a tile multiple, on a
+#: multiple of 8 (cp.async staging) and off it (plain-load staging, as is
+#: B > 1 with S N off a multiple of 8); every N (each K = min(N, 4)
+#: instance); float32 and bfloat16 inputs (dt, x, b, c; a is float32)
 SCAN_CASES = [
     (2, 64, 32, 4, "float32"),
     (1, 100, 48, 16, "float32"),
@@ -1049,22 +1063,66 @@ SCAN_CASES = [
     (2, 333, 1000, 16, "float32"),
     (1, 257, 97, 1, "float32"),
     (1, 200, 130, 32, "float32"),
+    (1, 5, 8, 8, "float32"),
     (1, 300, 520, 16, "bfloat16"),
     (2, 129, 64, 32, "bfloat16"),
+    (3, 77, 40, 2, "bfloat16"),
+    (2, 1, 33, 1, "bfloat16"),
+    (1, 203, 72, 4, "bfloat16"),
 ]
+#: the long-memory case: a = -0.01 exp(normal), so exp(dt a) stays within
+#: ~1e-3 of 1 and the state carries ~1000 steps; S over 32 chunks and
+#: ragged, D off a tile, the serving path's types (dt float32, x / b / c
+#: bf16).  Held to SCAN_TOL of max(1, max |y|); its control, the plain
+#: version with the state reset at a chunk boundary (SCAN_CUT), must differ
+#: from the whole run by at least SCAN_CARRY x that tolerance
+SCAN_LONG = (1, 2085, 264, 16)
+SCAN_LONG_A = 0.01
+SCAN_CUT = 1024
+SCAN_CARRY = 100.0
 
 
-def scan_inputs(B, S, D, N, dtype: str, seed: int):
+def scan_inputs(B, S, D, N, dtype: str, seed: int, a_scale: float = 1.0):
     """Seeded inputs on the card, drawn as tests/test_kernels.py draws them:
-    dt = 0.1 softplus(normal), x, b, c normal, a = -exp(normal) [D, N]
-    float32; dt, x, b, c rounded to ``dtype``."""
+    dt = 0.1 softplus(normal), x, b, c normal, a = -a_scale exp(normal)
+    [D, N] float32; dt, x, b, c rounded to ``dtype``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     randn = functools.partial(torch.randn, generator=g, device="cuda")
     dt = 0.1 * torch.nn.functional.softplus(randn((B, S, D)))
     x, b, c = randn((B, S, D)), randn((B, S, N)), randn((B, S, N))
-    a = -torch.exp(randn((D, N)))
+    a = -a_scale * torch.exp(randn((D, N)))
     dt_type = getattr(torch, dtype)
     return (*(t.to(dt_type) for t in (dt, x, b, c)), a)
+
+
+def scan_long_inputs(seed: int):
+    """SCAN_LONG's inputs: dt float32, x / b / c bf16, a float32."""
+    dt, x, b, c, a = scan_inputs(*SCAN_LONG, "float32", seed,
+                                 a_scale=SCAN_LONG_A)
+    return (dt, *(t.to(torch.bfloat16) for t in (x, b, c)), a)
+
+
+def scan_long_memory_check(seed: int):
+    """The kernel on SCAN_LONG within SCAN_TOL max(1, max |y|) of its plain
+    version, and the control: the plain version run in two halves, the
+    state reset at step SCAN_CUT, must differ from the whole run by at
+    least SCAN_CARRY x that tolerance, or the check could not see a carry
+    lost between chunks.  Returns the error, the tolerance and the
+    control's difference over the tolerance."""
+    ins = scan_long_inputs(seed)
+    err, top, _ = compare_scan(*ins, relative=True)
+    dt, x, b, c, a = ins
+    whole = ms.selective_scan_ref(*ins)
+    halves = torch.cat([ms.selective_scan_ref(dt[:, sl], x[:, sl], b[:, sl],
+                                              c[:, sl], a)
+                        for sl in (slice(0, SCAN_CUT),
+                                   slice(SCAN_CUT, None))], dim=1)
+    tol = SCAN_TOL * max(1.0, top)
+    ratio = max_abs_err(whole, halves) / tol
+    if SCAN_CUT % ms.kernel.CHUNK or not ratio >= SCAN_CARRY:
+        raise AssertionError(f"the long-memory control moved y by {ratio} x "
+                             f"the tolerance {tol} (at least {SCAN_CARRY})")
+    return err, tol, ratio
 
 
 def compare_scan(dt, x, b, c, a, *, relative: bool = False):
@@ -1172,40 +1230,120 @@ def ssm_model_f32(base):
     return err, top, launches
 
 
-def time_scan(seed: int):
-    """The scan kernel at the serving path's shape (1, 4096, 8192, 16) with
-    its types (dt float32, x / b / c bf16, a float32): CUDA-event ms per
-    call, profiler device ms, the plain version's ms (a Python loop of 4096
-    steps: a few calls only) and the bound: the larger of every input read
-    once and y written once over HBM, and the recurrence's float32
-    operations (7 per (t, d, n): dt a, exp, abar h, (dt x) b, the add, h c,
-    the sum over n; 1 per (t, d): dt x) at the CUDA cores' float32 rate.
-    No single PyTorch call computes a selective scan, so there is no
-    library time."""
+def scan_serving_inputs(seed: int):
+    """Seeded inputs at the serving path's shape (1, 4096, 8192, 16) with its
+    types (dt float32, x / b / c bf16, a float32)."""
     B, S, D, N = 1, PROMPT, 2 * FALCON_MAMBA_7B.d_model, \
         FALCON_MAMBA_7B.ssm.d_state
     dt, x, b, c, a = scan_inputs(B, S, D, N, "float32", seed)
-    x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
-    kern = lambda: ms.selective_scan(dt, x, b, c, a)  # noqa: E731
-    plain = lambda: ms.selective_scan_ref(dt, x, b, c, a)  # noqa: E731
-    nbytes = sum(t.numel() * t.element_size() for t in (dt, x, b, c, a)) \
-        + B * S * D * 4
+    return (dt, *(t.to(torch.bfloat16) for t in (x, b, c)), a)
+
+
+def scan_entry(kernel, dt, x, b, c, a):
+    """The bare ctypes entry point of ``kernel`` (a CudaKernel with
+    ``selective_scan_launch``'s signature) on these card inputs, with y
+    allocated and every argument converted to its ctypes type once: a
+    call with none of the wrapper's Python.  Returns the call, which holds
+    the tensors it writes and reads, and y."""
+    import ctypes
+
+    y = torch.empty(dt.shape, dtype=torch.float32, device=dt.device)
+    fn = kernel.fn()
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (dt, x, b, c, a, y)]
+    ints = [ctypes.c_int64(v) for v in (*dt.shape, a.shape[1],
+                                        *(int(t.dtype == torch.bfloat16)
+                                          for t in (dt, x, b, c)))]
+    args = (*ptrs, *ints,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    def call(buffers=(dt, x, b, c, a, y)):  # alive as long as the call
+        return fn(*args)
+
+    rc = call()
+    if rc != 0:
+        raise AssertionError(f"{kernel.name}: the bare launch failed: CUDA "
+                             f"error {rc}")
+    return call, y
+
+
+def time_scan(seed: int, baseline=None):
+    """The scan kernel at the serving path's shape and types
+    (:func:`scan_serving_inputs`): CUDA-event ms per call through the
+    package's ``selective_scan``, profiler device ms, the plain version's
+    ms (a Python loop of 4096 steps: a few calls only) and the bound: the
+    larger of every input read once and y written once over HBM, and the
+    recurrence's float32 operations (7 per (t, d, n): dt a, exp, abar h,
+    (dt x) b, the add, h c, the sum over n; 1 per (t, d): dt x) at the CUDA
+    cores' float32 rate.  No single PyTorch call computes a selective scan,
+    so there is no library time.
+
+    Beside it, where the calls' time goes: the same kernel through its bare
+    ctypes entry point (:func:`scan_entry`), through
+    ``selective_scan_kernel`` (the checked kernel wrapper) and through the
+    package entry, by CUDA events, back to back; and each one's host
+    microseconds per call (enqueue only, no synchronisation).  With
+    ``baseline`` (a CudaKernel of an earlier ``selective_scan.cu``), that
+    kernel's events and device ms on the same inputs, in turns with the
+    new one (baseline, new, new, baseline), and its largest difference from
+    the plain version."""
+    dt, x, b, c, a = ins = scan_serving_inputs(seed)
+    B, S, D = dt.shape
+    N = a.shape[1]
+    kern = lambda: ms.selective_scan(*ins)  # noqa: E731
+    checked = lambda: ms.kernel.selective_scan_kernel(*ins)  # noqa: E731
+    plain = lambda: ms.selective_scan_ref(*ins)  # noqa: E731
+    bare, _ = scan_entry(ms.SELECTIVE_SCAN_KERNEL, *ins)
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + B * S * D * 4
     flops = B * S * D * (7 * N + 1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-    return {"shape": [B, S, D, N], "types": "dt f32, x/b/c bf16, a f32",
-            "ms": cuda_ms(kern, iters=50, warmup=5),
-            "device_ms": device_ms(kern, iters=20),
-            "plain_ms": cuda_ms(plain, iters=2, warmup=1),
-            "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    out = {"shape": [B, S, D, N], "types": "dt f32, x/b/c bf16, a f32",
+           "ms": cuda_ms(kern, iters=50, warmup=5),
+           "device_ms": device_ms(kern, iters=20),
+           "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+           "library_ms": None,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "mufu_floor_ms_at_1.98GHz": B * S * D * N / (16 * 132 * 1.98e9)
+           * 1e3}
+    out["bound_share_of_device"] = out["bound_ms"] / out["device_ms"] \
+        if out["device_ms"] else None
+    split = {}
+    for name, fn in (("bare_entry", bare), ("kernel_wrapper", checked),
+                     ("package_entry", kern), ("bare_entry_again", bare)):
+        split[f"{name}_ms"] = cuda_ms(fn, iters=50, warmup=5)
+        torch.cuda.synchronize()
+        split[f"{name}_host_us"] = 1e3 * host_ms(fn, iters=20)
+        torch.cuda.synchronize()
+    out["call_split"] = split
+    if baseline is not None:
+        old, y_old = scan_entry(baseline, *ins)
+        torch.cuda.synchronize()
+        old_err = max_abs_err(y_old, plain())
+        turns = [("baseline", old), ("new", bare), ("new", bare),
+                 ("baseline", old)]
+        timed = collections.defaultdict(list)
+        for name, fn in turns:
+            timed[f"{name}_ms"].append(cuda_ms(fn, iters=30, warmup=5))
+            timed[f"{name}_device_ms"].append(device_ms(fn, iters=20))
+        out["baseline"] = {"source": str(baseline.source),
+                           "max_abs_err_vs_plain": old_err,
+                           "registers": ptxas_summary(baseline.build_log),
+                           **timed}
+    return out
 
 
 # --------------------------------------------------------------------------- #
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--baseline-scan", type=Path, default=None,
+                    help="an earlier selective_scan.cu (same C entry point) "
+                    "to build and time beside this one in phase 11")
+    args = ap.parse_args(argv)
     # 1. card
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's smoke run needs "
@@ -1269,6 +1407,13 @@ def main() -> int:
             *scan_inputs(B, S, D, N, dtype, seed=100 + i))[0])
     print(f"selective_scan vs plain: max abs err {scan_err} (tolerance "
           f"{SCAN_TOL}) at (B, S, D, N, dtype) = {SCAN_CASES}", flush=True)
+    long_err, long_tol, long_ratio = scan_long_memory_check(seed=99)
+    scan_err = max(scan_err, long_err)
+    print(f"selective_scan vs plain, long memory (a = -{SCAN_LONG_A} "
+          f"exp(normal), (B, S, D, N) = {SCAN_LONG}, dt f32, x/b/c bf16): "
+          f"max abs err {long_err} (tolerance {long_tol}); the plain version "
+          f"with the state reset at step {SCAN_CUT} moves y by {long_ratio} x "
+          f"that tolerance (at least {SCAN_CARRY})", flush=True)
 
     # 4. the decision path at full size, held to the float64 twin
     plat = build_rig(WORKERS)  # device="cuda", the default
@@ -1384,8 +1529,16 @@ def main() -> int:
           f"{s32_err} (bound {SCAN_TOL} x max(1, {s32_scale})); "
           f"{s32_launches} scan launches", flush=True)
 
-    # 11. SSM times
-    scan_t = time_scan(seed=14)
+    # 11. SSM times (and, when asked, an earlier scan kernel's beside them)
+    baseline = None
+    if args.baseline_scan is not None:
+        k = ms.SELECTIVE_SCAN_KERNEL
+        baseline = type(k)("selective_scan_baseline",
+                           str(args.baseline_scan.resolve()), entry=k.entry,
+                           argtypes=k.argtypes, flags=k.flags)
+        baseline.library_path().unlink(missing_ok=True)
+    scan_t = time_scan(seed=14, baseline=baseline)
+    scan_t["registers"] = ptxas["selective_scan"]
     print(f"time {tag}: selective_scan at {tuple(scan_t['shape'])} "
           f"({scan_t['types']}): {json.dumps(scan_t)}", flush=True)
     print(f"SSM serving end to end {tag}: {json.dumps(ssm_serving)}",

@@ -4,10 +4,11 @@ The Hopper counterpart of the reference's Pallas kernel
 (``repro/kernels/mamba_scan/kernel.py::_scan_kernel``): the same float32
 recurrence with the ``[channel tile, N]`` state kept on chip across the whole
 sequence, but with the sequence walked by a loop inside each block instead
-of a sequential grid axis, one state per thread, and the ragged S and D
-edges masked in the kernel instead of padded.  The TPU tiling knobs
-(``chunk``, ``bd``) have no counterpart.  The source's header note says what
-bounds it.
+of a sequential grid axis, several states per thread, and the ragged S and
+D edges masked in the kernel instead of padded.  The TPU tiling knobs
+(``chunk``, ``bd``) have no counterpart; the kernel's own tiling is fixed
+and mirrored below (:data:`CHUNK`, :data:`CHANNEL_TILE`, :data:`GROUP`,
+:func:`states_per_thread`).  The source's header note says what bounds it.
 
 :func:`selective_scan_kernel` takes CUDA tensors only; the public wrapper
 (:func:`repro_torch.kernels.mamba_scan.ops.selective_scan`) routes CPU
@@ -24,6 +25,22 @@ from ..build import NVCC_FLAGS, CudaKernel
 _P, _N = ctypes.c_void_p, ctypes.c_int64
 STATE_DIMS = (1, 2, 4, 8, 16, 32)
 DTYPES = (torch.float32, torch.bfloat16)
+
+# the kernel's tiling, as ``csrc/selective_scan.cu`` fixes it (``scan::kT``,
+# ``kCh``, ``kU``, ``kMaxStatesPerThread``): steps per staged chunk,
+# channels per block, steps per unrolled group (one reduce-scatter), and
+# the most states of one channel a thread holds
+CHUNK = 64
+CHANNEL_TILE = 32
+GROUP = 8
+MAX_STATES_PER_THREAD = 4
+
+
+def states_per_thread(n: int) -> int:
+    """K, the states of one channel a thread holds at state size ``n``
+    (``Shape<N>::K``); ``n // K`` lanes share a channel."""
+    return min(n, MAX_STATES_PER_THREAD)
+
 
 KERNEL = CudaKernel(
     "selective_scan", "mamba_scan/csrc/selective_scan.cu",

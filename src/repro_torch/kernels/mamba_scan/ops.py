@@ -16,13 +16,12 @@ def selective_scan(dt, x, b, c, a, *, backend="auto"):
     of 1, 2, 4, 8, 16, 32.  Anything else raises, on every route."""
     if backend not in ("auto", "ref"):
         raise ValueError(f"unknown backend {backend!r}: 'auto' or 'ref'")
-    check_shapes(dt, x, b, c, a)
-    if backend == "ref":
-        return selective_scan_ref(dt, x, b, c, a)
-    if dt.device.type == "cuda":
+    if backend == "auto" and dt.device.type == "cuda":
+        # the kernel's wrapper checks the shapes with the rest
         return selective_scan_kernel(dt.contiguous(), x.contiguous(),
                                      b.contiguous(), c.contiguous(),
                                      a.contiguous())
-    if dt.device.type == "cpu":
+    check_shapes(dt, x, b, c, a)
+    if backend == "ref" or dt.device.type == "cpu":
         return selective_scan_ref(dt, x, b, c, a)
     raise ValueError(f"unsupported device {dt.device}: 'cuda' or 'cpu'")

@@ -111,3 +111,26 @@ def test_selective_scan_refuses_an_unsupported_state_size_on_the_card(card):
     dt, x, b, c, a = chip_smoke.scan_inputs(1, 8, 32, 4, "float32", seed=0)
     with pytest.raises(ValueError, match="state size N = 3"):
         ms.selective_scan(dt, x, b[..., :3], c[..., :3], a[:, :3])
+
+
+def test_selective_scan_carries_a_long_memory_on_the_card(card):
+    """a = -0.01 exp(normal) over 32 chunks and more, the serving path's
+    types: within SCAN_TOL of max(1, max |y|), where the plain version with
+    the state reset at a chunk boundary misses by SCAN_CARRY x that."""
+    before = ms.SELECTIVE_SCAN_KERNEL.launches
+    err, tol, ratio = chip_smoke.scan_long_memory_check(seed=5)
+    assert err <= tol
+    assert ratio >= chip_smoke.SCAN_CARRY
+    assert ms.SELECTIVE_SCAN_KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("N", [1, 2, 4],
+                         ids=lambda n: f"K{ms.kernel.states_per_thread(n)}")
+def test_selective_scan_each_states_per_thread_instance_on_the_card(card, N):
+    """One case per K (states of a channel per thread): K = 1, 2, 4, at a
+    ragged S and D over several chunks, float32 and the mixed types."""
+    dt, x, b, c, a = chip_smoke.scan_inputs(2, 150, 72, N, "float32",
+                                            seed=40 + N)
+    assert chip_smoke.compare_scan(dt, x, b, c, a)[0] <= chip_smoke.SCAN_TOL
+    x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
+    assert chip_smoke.compare_scan(dt, x, b, c, a)[0] <= chip_smoke.SCAN_TOL

@@ -141,3 +141,80 @@ def test_the_routes(monkeypatch):
         ms_ops.selective_scan(*meta)
     assert calls == []
     assert ms.KERNELS == (ms.SELECTIVE_SCAN_KERNEL,)
+
+
+def test_the_kernel_tiling_mirrors_the_cuda_source_and_the_card_cases_cover_it():
+    """``kernel.py``'s tiling constants are the ``.cu``'s ``constexpr``s, and
+    ``chip_smoke.SCAN_CASES`` (the cases the card checks) reach S below one
+    chunk, S and D off a chunk and a tile multiple, D below one tile, both
+    staging routes (D a multiple of 8 or not), both input types, and every
+    state size, so every K instance."""
+    import re
+    from pathlib import Path
+
+    import chip_smoke
+
+    src = (Path(ms_kernel.__file__).parent / "csrc" / "selective_scan.cu"
+           ).read_text()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kT"] == ms_kernel.CHUNK
+    assert consts["kCh"] == ms_kernel.CHANNEL_TILE
+    assert consts["kU"] == ms_kernel.GROUP
+    assert consts["kMaxStatesPerThread"] == ms_kernel.MAX_STATES_PER_THREAD
+    for n in ms_kernel.STATE_DIMS:
+        k = ms_kernel.states_per_thread(n)
+        assert n % k == 0 and ms_kernel.GROUP % (n // k) == 0
+    cases = chip_smoke.SCAN_CASES
+    chunk, tile = ms_kernel.CHUNK, ms_kernel.CHANNEL_TILE
+    assert any(S < chunk for _, S, _, _, _ in cases)
+    assert any(S > chunk and S % chunk for _, S, _, _, _ in cases)
+    assert any(S % ms_kernel.GROUP for _, S, _, _, _ in cases)
+    assert any(D > tile and D % tile for _, _, D, _, _ in cases)
+    assert any(D < tile for _, _, D, _, _ in cases)
+    assert any(D % 8 == 0 for _, _, D, _, _ in cases)
+    assert any(D % 8 for _, _, D, _, _ in cases)
+    assert {dtype for *_, dtype in cases} == {"float32", "bfloat16"}
+    assert {N for _, _, _, N, _ in cases} == set(ms_kernel.STATE_DIMS)
+    # the long-memory case runs over four chunks or more, off a chunk
+    # multiple, and its control cuts at a chunk boundary
+    _, S, D, N = chip_smoke.SCAN_LONG
+    assert S >= 4 * chunk and S % chunk and D % tile
+    assert chip_smoke.SCAN_CUT % chunk == 0 and 0 < chip_smoke.SCAN_CUT < S
+
+
+def test_the_long_memory_control_sees_a_lost_carry():
+    """The plain version at the card's long-memory shape (a = -0.01
+    exp(normal), ``chip_smoke.SCAN_LONG``), run in two halves with the state
+    reset at ``SCAN_CUT``, differs from the whole run by more than
+    ``SCAN_CARRY`` x the check's tolerance: a kernel that lost its carry
+    between chunks could not pass that check."""
+    import chip_smoke
+
+    B, S, D, N = chip_smoke.SCAN_LONG
+    dt, x, b, c, a = (torch.from_numpy(t) for t in inputs(11, B, S, D, N))
+    a = a * chip_smoke.SCAN_LONG_A
+    whole = selective_scan(dt, x, b, c, a)
+    cut = chip_smoke.SCAN_CUT
+    halves = torch.cat([selective_scan(dt[:, sl], x[:, sl], b[:, sl],
+                                       c[:, sl], a)
+                        for sl in (slice(0, cut), slice(cut, None))], dim=1)
+    tol = chip_smoke.SCAN_TOL * max(1.0, float(whole.abs().max()))
+    assert float((whole - halves).abs().max()) >= chip_smoke.SCAN_CARRY * tol
+    assert torch.equal(whole[:, :cut], halves[:, :cut])
+
+
+def test_every_probe_variant_applies_to_the_kernel_source():
+    """``tools/scan_variants.py`` derives its variants by text substitution;
+    each substitution must still match the kernel's source and change it."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "scan_variants.py"
+    spec = importlib.util.spec_from_file_location("scan_variants", path)
+    sv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sv)
+    src = sv.SOURCE.read_text()
+    for name in sv.VARIANTS:
+        text = sv.variant_text(name)
+        assert (text == src) == (not sv.VARIANTS[name])
