@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--baseline-scan PATH]
+    python3 chip_smoke.py [--baseline-scan PATH] [--baseline-affinity DIR]
 
 Phases, one line each (every time beside the card's name and power limit):
 
@@ -9,9 +9,10 @@ Phases, one line each (every time beside the card's name and power limit):
 2. build  — the five kernels from ``src/repro_torch/kernels/*/csrc/*.cu``
    with ``nvcc``, one process per source, in parallel;
 3. kernels vs plain — each affinity kernel against its plain PyTorch version
-   on the card, bit for bit, at tile-edge shapes and at the main path's
-   shapes, with rows that are all tied (the lowest index must win) and rows
-   with no valid worker (``-1``); the float32 flash-attention kernel against
+   on the card, bit for bit, at the edges of its geometry
+   (``AFFINITY_CASES``) and at the main path's shapes, with rows that are
+   all tied (the lowest index must win) and rows with no valid worker
+   (``-1``); the float32 flash-attention kernel against
    its plain version within 2e-5 and the bf16 one against the plain
    version on its inputs widened to float32, element by element within the
    bound of its two roundings, on the whole inputs and on v restricted to a
@@ -34,8 +35,13 @@ Phases, one line each (every time beside the card's name and power limit):
    on the card, bit for bit, on the inputs the main path gives it (every
    function's per-arrival rows, a wave's rows) from the live session;
 5. times — each affinity kernel's CUDA-event time at the main path's shapes
-   and at the 512-tag, 512-row scale, its profiler device time, its plain
-   version's times, and its bound; end-to-end us/decision per arrival and
+   and at the 512-tag, 512-row scale, its profiler device time split by
+   kernel name (a call must be one launch), its plain version's times, and
+   its bound; where a call's time goes at the main path's shapes (the bare
+   ctypes entry, the checked kernel wrapper and the package entry, by events
+   and by host enqueue time); with ``--baseline-affinity DIR`` the parent
+   commit's two kernels built and timed beside them, in turns, at all four
+   shapes; end-to-end us/decision per arrival and
    per wave of 512, beside the float64 host twin's on the same host, and
    the per-arrival valid call with two of its parts (inputs to the card,
    the result back to the host);
@@ -89,6 +95,7 @@ exits non-zero and prints no result line.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -114,9 +121,11 @@ from repro_torch.configs.registry import (FALCON_MAMBA_7B,  # noqa: E402
 from repro_torch.core.ast import (AAppScript, Affinity, Block,  # noqa: E402
                                   Invalidate, TagPolicy)
 from repro_torch.core.state import ClusterState, Registry  # noqa: E402
-from repro_torch.kernels.affinity import (KERNELS, NO_CAP,  # noqa: E402
-                                          NO_CONC, affinity_valid,
-                                          affinity_valid_np, bulk_decide)
+from repro_torch.kernels.affinity import (  # noqa: E402
+    AFFINITY_VALID_KERNEL, BULK_DECIDE_KERNEL, KERNELS, NO_CAP, NO_CONC,
+    affinity_valid, affinity_valid_np, bulk_decide)
+from repro_torch.kernels.affinity import bulk_kernel  # noqa: E402
+from repro_torch.kernels.affinity import kernel as affinity_kernel  # noqa: E402
 from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref  # noqa: E402
 from repro_torch.kernels.affinity.ops import as_inputs  # noqa: E402
 from repro_torch.kernels.affinity.ref import affinity_valid_ref  # noqa: E402
@@ -146,6 +155,17 @@ WAVE = 512
 N_WAVES = 4
 FUNCTIONS = {"f_lat": (1.0, "lat"), "f_train": (8.0, "train"),
              "f_batch": (2.0, "batch")}
+
+# phase 3's affinity shapes (W, T, R): the edges of the kernels' geometry
+# (csrc/affinity_common.cuh: 128-worker tiles, 4 workers a thread, 512 rows a
+# block, 32-tag words in register chunks of up to 8, and the three occ load
+# paths: T a multiple of 32, T <= 32, any other T), W = 1, 3, 5, 16385,
+# T = 1, 31, 32, 33, 513, R one past a block's rows, and the main path's
+# and the 512-tag scale's shapes
+AFFINITY_CASES = [(1, 1, 1), (3, 31, 2), (5, 32, 513), (130, 5, 257),
+                  (16385, 3, 129), (16385, 33, 7), (1, 513, 4),
+                  (257, 512, 1025), (4100, 96, 600), (16384, 1, 6),
+                  (16384, 4, 3), (16384, 512, 512)]
 
 # the TPU kernel each CUDA kernel replaces (its Pallas body in the JAX package)
 REPLACES = {"affinity_valid": "src/repro/kernels/affinity/kernel.py:33",
@@ -484,29 +504,47 @@ def main_path_inputs(plat: Platform):
     return arrivals, wave
 
 
-def device_ms(fn, iters: int = 50):
-    """Device time per call, summed over every CUDA kernel and copy the call
-    enqueued, from ``torch.profiler``; ``None`` when the profiler sees no
-    device activity (then the device time is not measured)."""
+def device_split(fn, iters: int = 50, attempts: int = 3):
+    """Device time per call by kernel (and copy) name, from
+    ``torch.profiler``: ``{name: {"ms": ms per call, "per_call": events per
+    call}}``; empty when the profiler sees no device activity.  A trace
+    that lost events (a count that is not a whole number of calls) is taken
+    again, up to ``attempts`` times; the last one is returned as it is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3 if us > 0 else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        split = {e.key: {"ms": e.self_device_time_total / iters / 1e3,
+                         "per_call": e.count / iters}
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0}
+        if all(v["per_call"] == int(v["per_call"]) for v in split.values()):
+            break
+    return split
+
+
+def device_ms(fn, iters: int = 50):
+    """Device time per call, summed over every CUDA kernel and copy the call
+    enqueued, from ``torch.profiler``; ``None`` when the profiler sees no
+    device activity (then the device time is not measured)."""
+    split = device_split(fn, iters)
+    return sum(v["ms"] for v in split.values()) if split else None
 
 
 def time_kernel(name: str, case):
     """The kernel's wrapper and its plain version on the same card inputs:
     CUDA-event ms per call (the wrapper's host work included), profiler
-    device ms per call, and the bound.  ``case`` has 9 arrays for
-    ``affinity_valid`` and 11 (with strat, warm) for ``bulk_decide``."""
+    device ms per call and its split by kernel name, and the bound.
+    ``case`` has 9 arrays for ``affinity_valid`` and 11 (with strat, warm)
+    for ``bulk_decide``.  Raises unless a call is one launch of one kernel
+    on the card (no copy, no memset)."""
     ins, extra = on_card(case)
     F, (W, T) = ins[1].shape[0], ins[0].shape
     if name == "affinity_valid":
@@ -518,8 +556,15 @@ def time_kernel(name: str, case):
     out = kern()
     b_ms, b_by = bound((*ins, *extra), out if isinstance(out, tuple)
                        else (out,), F, W, T)
+    split = device_split(kern)
+    if split and sum(v["per_call"] for v in split.values()) != 1:
+        raise AssertionError(f"{name} at {(F, W, T)} is not one launch a "
+                             f"call: {split}")
     return {"shape": [F, W, T], "ms": cuda_ms(kern),
-            "plain_ms": cuda_ms(plain), "device_ms": device_ms(kern),
+            "plain_ms": cuda_ms(plain),
+            "device_ms": sum(v["ms"] for v in split.values()) if split
+            else None,
+            "device_split": split,
             "plain_device_ms": device_ms(plain), "bound_ms": b_ms,
             "bound_by": b_by}
 
@@ -533,6 +578,138 @@ def host_ms(fn, iters: int = 200) -> float:
         fn()
     return (time.perf_counter() - t0) / iters * 1e3
 
+
+
+# the parent commit's affinity entry points (PR 15's sources): a scratch
+# buffer of int32 words where the current bulk entry takes its key buffer
+# and the current valid entry nothing
+OLD_VALID_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3 + [
+    ctypes.c_void_p]
+
+
+def old_scratch_words(R: int, W: int, T: int, bulk: bool) -> int:
+    """The int32 scratch words the parent's entry takes: packed masks
+    (2 R NW + NW W), and for bulk_decide 8-byte aligned R ceil(W / 256)
+    uint64 partials."""
+    nw = (T + 31) // 32
+    words = 2 * R * nw + nw * W
+    return words + (words & 1) + 2 * R * (-(-W // 256)) if bulk else words
+
+
+def affinity_entry(kernel, ins, extra=(), old: bool = False):
+    """The bare ctypes entry point of an affinity kernel on these card
+    inputs: ``kernel`` has ``bulk_decide_launch``'s signature when
+    ``extra`` holds strat and warm, else ``affinity_valid_launch``'s (the
+    parent commit's with ``old``).  Outputs, key buffer or scratch are
+    allocated and every argument converted to its ctypes type once: a call
+    with none of the wrappers' Python.  Returns the call, which holds the
+    tensors it reads and writes, and the outputs."""
+    occ, aff, wmask, mem, maxm, nfn, f_mem, cap, conc = ins
+    (W, T), R, dev = occ.shape, aff.shape[0], occ.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    valid = torch.empty((R, W), dtype=torch.bool, device=dev)
+    scratch = (torch.empty((old_scratch_words(R, W, T, bool(extra)),),
+                           dtype=torch.int32, device=dev),) if old else ()
+    if extra:
+        outs = (valid, torch.empty((R, W), dtype=torch.float32, device=dev),
+                 torch.empty((R,), dtype=torch.int32, device=dev))
+        keys = scratch or (bulk_kernel.ROW_KEYS.get(R, dev, stream),)
+        tensors = (aff, f_mem, cap, conc, extra[0], occ, mem, maxm, nfn,
+                   wmask, extra[1], *outs, *keys)
+    else:
+        outs = (valid,)
+        tensors = (aff, f_mem, cap, conc, occ, mem, maxm, nfn, wmask, valid,
+                   *scratch)
+    fn = kernel.fn()
+    args = (*(ctypes.c_void_p(t.data_ptr()) for t in tensors),
+            *(ctypes.c_int64(v) for v in (R, W, T)), ctypes.c_void_p(stream))
+
+    def call(buffers=tensors):  # alive as long as the call
+        return fn(*args)
+
+    rc = call()
+    if rc != 0:
+        raise AssertionError(f"{kernel.name}: the bare launch failed: CUDA "
+                             f"error {rc}")
+    return call, outs
+
+
+def affinity_call_split(name: str, case):
+    """Where an affinity call's time goes at one shape: the bare ctypes
+    entry, the checked kernel wrapper and the package entry, back to back,
+    each by CUDA events and by host enqueue microseconds (no
+    synchronisation)."""
+    ins, extra = on_card(case)
+    if name == "affinity_valid":
+        kern = AFFINITY_VALID_KERNEL
+        checked = lambda: affinity_kernel.affinity_valid_kernel(*ins)  # noqa: E731
+        package = lambda: affinity_valid(*ins)  # noqa: E731
+        extra = ()
+    else:
+        kern = BULK_DECIDE_KERNEL
+        checked = lambda: bulk_kernel.bulk_decide_kernel(*ins, *extra)  # noqa: E731
+        package = lambda: bulk_decide(*ins, *extra)  # noqa: E731
+    bare, _ = affinity_entry(kern, ins, extra)
+    split = {}
+    for part, fn in (("bare_entry", bare), ("kernel_wrapper", checked),
+                     ("package_entry", package), ("bare_entry_again", bare)):
+        split[f"{part}_ms"] = cuda_ms(fn)
+        torch.cuda.synchronize()
+        split[f"{part}_host_us"] = 1e3 * host_ms(fn)
+        torch.cuda.synchronize()
+    return split
+
+
+def time_affinity_baseline(base_dir: Path, cases):
+    """The parent commit's two affinity kernels (``affinity_valid.cu``,
+    ``bulk_decide.cu`` and their header in ``base_dir``), built under other
+    names, against the current ones through both bare entries, on the same
+    card inputs at each of ``cases`` ({label: (kernel name, case)}): CUDA-
+    event and profiler device ms in turns (old, new, new, old), the old
+    kernels' device split by kernel name, and the old outputs held to the
+    plain versions bit for bit."""
+    current = {"affinity_valid": AFFINITY_VALID_KERNEL,
+               "bulk_decide": BULK_DECIDE_KERNEL}
+    old = {name: type(k)(f"{name}_baseline", str((base_dir / k.source.name)
+                                                 .resolve()),
+                         entry=k.entry,
+                         argtypes=(OLD_VALID_ARGTYPES
+                                   if name == "affinity_valid"
+                                   else k.argtypes),
+                         headers=(str((base_dir / "affinity_common.cuh")
+                                      .resolve()),),
+                         flags=k.flags)
+           for name, k in current.items()}
+    for k in old.values():
+        k.library_path().unlink(missing_ok=True)
+    build_all(list(old.values()))
+    out = {"registers": {k.name: ptxas_summary(k.build_log)
+                         for k in old.values()}}
+    for label, (name, case) in cases.items():
+        ins, extra = on_card(case)
+        extra = extra if name == "bulk_decide" else ()
+        call_old, got_old = affinity_entry(old[name], ins, extra, old=True)
+        call_new, got_new = affinity_entry(current[name], ins, extra)
+        torch.cuda.synchronize()
+        want = (bulk_decide_ref(*ins, *extra) if extra
+                else (affinity_valid_ref(*ins),))
+        for got in (got_old, got_new):
+            for g, w in zip(got, want):
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{name} at {label}: a bare entry "
+                                         "differs from the plain version")
+        timed = collections.defaultdict(list)
+        for which, fn in (("old", call_old), ("new", call_new),
+                          ("new", call_new), ("old", call_old)):
+            timed[f"{which}_ms"].append(cuda_ms(fn))
+            timed[f"{which}_device_ms"].append(device_ms(fn))
+        timed["old_device_split"] = device_split(call_old)
+        timed["new_device_split"] = device_split(call_new)
+        out[label] = {"kernel": name,
+                      "shape": [ins[1].shape[0], *ins[0].shape], **timed}
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1343,6 +1520,11 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline-scan", type=Path, default=None,
                     help="an earlier selective_scan.cu (same C entry point) "
                     "to build and time beside this one in phase 11")
+    ap.add_argument("--baseline-affinity", type=Path, default=None,
+                    help="a directory with the parent commit's "
+                    "affinity_valid.cu, bulk_decide.cu and "
+                    "affinity_common.cuh, to build and time beside these "
+                    "in phase 5")
     args = ap.parse_args(argv)
     # 1. card
     if not torch.cuda.is_available():
@@ -1375,8 +1557,7 @@ def main(argv=None) -> int:
           f"registers per instance and spilled bytes: {ptxas}", flush=True)
 
     # 3. kernels vs plain, bit for bit
-    shapes = [(1, 1, 1), (130, 5, 257), (16385, 3, 129), (16384, 4, 3),
-              (16384, 512, 512)]
+    shapes = AFFINITY_CASES
     errs = {"affinity_valid": 0.0, "bulk_decide": 0.0}
     for W, T, R in shapes:
         errs = worst(errs, compare_kernel_case(
@@ -1463,6 +1644,21 @@ def main(argv=None) -> int:
     for (name, where), t in timed.items():
         print(f"time {tag}: {name} at {tuple(t['shape'])} ({where}): "
               f"{json.dumps(t)}", flush=True)
+    for name, case in (("affinity_valid", arrival_case),
+                       ("bulk_decide", wave_case)):
+        print(f"call split {tag}: {name} at the main path's shape: "
+              f"{json.dumps(affinity_call_split(name, case))}", flush=True)
+    if args.baseline_affinity is not None:
+        base = time_affinity_baseline(args.baseline_affinity, {
+            f"{name}_{where}": (name, case) for (name, where), case in (
+                (("affinity_valid", "main"), arrival_case),
+                (("bulk_decide", "main"), wave_case),
+                (("affinity_valid", "T512"),
+                 first_rows(scale, len(arrival_case[1]))),
+                (("bulk_decide", "T512"), scale))})
+        print(f"baseline {tag}: the parent's affinity kernels "
+              f"({args.baseline_affinity}) and these, in turns: "
+              f"{json.dumps(base)}", flush=True)
     valid_on_card = affinity_valid(*on_card(arrival_case)[0])
     e2e = {"us_per_decision_arrival": secs["arrival_s"] / WAVE * 1e6,
            "us_per_decision_wave512": secs["wave_s"] / WAVE * 1e6,

@@ -43,16 +43,15 @@ class RooflineOracle(ServiceOracle):
 
     The reference derives them from partitioned XLA HLO
     (``repro.roofline.flops``); the port has no roofline model yet — it
-    comes with the mesh and roofline tooling (``ROADMAP.md``, Queue 1
-    item 9).  Until then constructing one raises.
+    comes with the mesh and roofline tooling (``ROADMAP.md``).  Until then
+    constructing one raises.
     """
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "RooflineOracle needs the roofline model, which the port has not "
-            "ported yet (ROADMAP.md, Queue 1 item 9: mesh and roofline "
-            "tooling); pass a TableOracle or a {function: seconds} mapping "
-            "instead")
+            "ported yet (ROADMAP.md: the mesh and roofline tooling); pass a "
+            "TableOracle or a {function: seconds} mapping instead")
 
 
 def as_oracle(source) -> Optional[ServiceOracle]:

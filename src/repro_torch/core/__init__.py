@@ -39,6 +39,7 @@ from .strategies import (
     strategy_names,
 )
 from .state import Activation, ClusterState, Conf, Registry, WorkerView, ConcurrencyConflict
+from .baseline import schedule_vanilla, try_schedule_vanilla
 from .batched import (
     CompiledPolicies,
     SchedulerSession,
@@ -67,8 +68,8 @@ __all__ = [
     "AAppError", "AAppScript", "Affinity", "Block", "Invalidate", "SchedulingFailure",
     "TagPolicy", "default_policy", "parse", "parse_file", "to_text", "schedule",
     "try_schedule", "valid", "candidate_blocks", "Activation", "ClusterState", "Conf",
-    "Registry", "WorkerView", "ConcurrencyConflict",
-    "CompiledPolicies", "SchedulerSession", "TagIndex",
+    "Registry", "WorkerView", "ConcurrencyConflict", "schedule_vanilla",
+    "try_schedule_vanilla", "CompiledPolicies", "SchedulerSession", "TagIndex",
     "TagRows", "StateTensors", "schedule_wave", "WaveResult", "Warmth",
     # v2 surface
     "decide", "explain", "rejection_reason", "default_rng", "seed_default_rng",

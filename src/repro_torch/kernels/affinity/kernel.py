@@ -2,10 +2,10 @@
 
 The Hopper counterpart of the reference's Pallas kernel
 (``repro/kernels/affinity/kernel.py::_affinity_kernel``): the same
-``valid[F, W]`` for F pending block rows over W workers, with the affinity
-violations counted as popcounts over 32-tag bitmask words instead of 0/1
-float32 matmuls, and the ragged F/W edges masked in the kernel instead of
-padded to 128-wide tiles.  The source's header note says what bounds it.
+``valid[F, W]`` for F pending block rows over W workers in one launch, with
+the affinity test made on 32-tag bitmask words instead of 0/1 float32
+matmuls, and the ragged F/W edges masked in the kernel instead of padded to
+128-wide tiles.  The source's header note says what bounds it.
 
 :func:`affinity_valid_kernel` takes CUDA tensors only; the public wrapper
 (:func:`repro_torch.kernels.affinity.ops.affinity_valid`) routes CPU
@@ -20,13 +20,16 @@ import torch
 from ..build import CudaKernel
 
 _P, _N = ctypes.c_void_p, ctypes.c_int64
-MAX_ROWS = 65535 * 8  # grid.y blocks x rows per block (kRows)
+# rows a block covers (kBlockRows in csrc/affinity_common.cuh) and the most
+# rows the launch grid covers (65535 blocks on grid.y)
+BLOCK_ROWS = 512
+MAX_ROWS = 65535 * BLOCK_ROWS
 
 KERNEL = CudaKernel(
     "affinity_valid", "affinity/csrc/affinity_valid.cu",
     entry="affinity_valid_launch",
-    # aff f_mem cap conc occ mem maxm nfn wmask valid scratch, F W T, stream
-    argtypes=[_P] * 11 + [_N] * 3 + [_P],
+    # aff f_mem cap conc occ mem maxm nfn wmask valid, F W T, stream
+    argtypes=[_P] * 10 + [_N] * 3 + [_P],
     headers=("affinity/csrc/affinity_common.cuh",))
 
 
@@ -84,15 +87,12 @@ def affinity_valid_kernel(occ, aff, wmask, mem_used, max_mem, n_funcs,
     valid = torch.empty((F, W), dtype=torch.bool, device=occ.device)
     if F == 0 or W == 0:
         return valid
-    nw = (T + 31) // 32
-    scratch = torch.empty((2 * F * nw + nw * W,), dtype=torch.int32,
-                          device=occ.device)
     stream = torch.cuda.current_stream(occ.device).cuda_stream
     rc = KERNEL.fn()(
         aff.data_ptr(), f_mem.data_ptr(), cap_pct.data_ptr(),
         max_conc.data_ptr(), occ.data_ptr(), mem_used.data_ptr(),
         max_mem.data_ptr(), n_funcs.data_ptr(), wmask.data_ptr(),
-        valid.data_ptr(), scratch.data_ptr(), F, W, T, stream)
+        valid.data_ptr(), F, W, T, stream)
     if rc != 0:
         raise RuntimeError(f"affinity_valid launch failed: CUDA error {rc}")
     KERNEL.launches += 1

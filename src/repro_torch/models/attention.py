@@ -168,8 +168,8 @@ def attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
                                    q_block=q_block)
     if impl == "flash":
         from repro_torch.kernels import flash_attention as fa
-        return fa.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
-                                  window=window)
+        # the kernel takes positions 0..S-1, the only ones prefill passes
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

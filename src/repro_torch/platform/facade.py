@@ -42,7 +42,8 @@ equal the JAX reference ``Platform(backend="ref")`` bit for bit, and its
 float64 ``backend="np"`` everywhere except where float64 rounding breaks a
 rational ``min_cost`` tie.  ``backend="np"`` selects the float64 host twin.
 The observability and resilience bundles are not ported yet: passing one
-raises ``NotImplementedError`` (``ROADMAP.md``, Queue 1 item 6).
+raises ``NotImplementedError`` (``ROADMAP.md``: the obs and resilience
+work of the port).
 """
 from __future__ import annotations
 
@@ -59,10 +60,10 @@ from repro_torch.core.sharded import ShardedSession
 from repro_torch.core.state import Activation, ClusterState, Registry
 from repro_torch.resilience import DEFAULT_TENANT, LostActivation
 
-_NO_OBS = ("the observability plane is not ported yet (ROADMAP.md, Queue 1 "
-           "item 6: pool, forecast, obs and resilience); pass obs=None")
-_NO_RESILIENCE = ("the resilience layer is not ported yet (ROADMAP.md, Queue 1 "
-                  "item 6: pool, forecast, obs and resilience); pass "
+_NO_OBS = ("the observability plane is not ported yet (ROADMAP.md: the obs "
+           "and resilience work of the port); pass obs=None")
+_NO_RESILIENCE = ("the resilience layer is not ported yet (ROADMAP.md: the "
+                  "obs and resilience work of the port); pass "
                   "resilience=None")
 
 ClusterLike = Union[None, ClusterState, Mapping[str, float],
@@ -173,8 +174,9 @@ class Platform:
 
     def attach_resilience(self, resilience) -> None:
         """Detach the resilience bundle (``None``).  The admission, fair
-        queueing and retry layer is not ported yet (``ROADMAP.md``, Queue
-        1), so attaching a bundle raises ``NotImplementedError``."""
+        queueing and retry layer is not ported yet (``ROADMAP.md``: the obs
+        and resilience work), so attaching a bundle raises
+        ``NotImplementedError``."""
         if resilience is not None:
             raise NotImplementedError(_NO_RESILIENCE)
         self.resilience = None
@@ -182,8 +184,9 @@ class Platform:
 
     def attach_obs(self, obs) -> None:
         """Detach the observability bundle (``None``).  The tracer, metrics
-        registry and stage timers are not ported yet (``ROADMAP.md``, Queue
-        1), so attaching a bundle raises ``NotImplementedError``."""
+        registry and stage timers are not ported yet (``ROADMAP.md``: the obs
+        and resilience work), so attaching a bundle raises
+        ``NotImplementedError``."""
         if obs is not None:
             raise NotImplementedError(_NO_OBS)
         self.obs = None

@@ -3,7 +3,7 @@ tenant name and the structured record of an activation lost to a worker
 failure (:meth:`repro_torch.platform.Platform.fail_worker`).
 
 Admission, fair queueing, retry and the chaos harness are not ported yet
-(``ROADMAP.md``, Queue 1 item 6); the port's ``Platform`` rejects a
+(``ROADMAP.md``: the obs and resilience work); the port's ``Platform`` rejects a
 non-``None`` ``resilience=`` bundle until they are.
 """
 from __future__ import annotations

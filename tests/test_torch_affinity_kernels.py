@@ -7,6 +7,9 @@ tolerance — and the float64 numpy twin on (valid, winner) where memories lie
 on the 0.25 grid.  The CUDA kernels themselves are held to the plain
 versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,7 @@ from repro_torch.kernels.affinity import (
     bulk_decide,
     bulk_decide_np,
 )
+from repro_torch.kernels.affinity import bulk_kernel, kernel
 from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref
 from repro_torch.kernels.affinity.ops import as_inputs
 from repro_torch.kernels.affinity.ref import affinity_valid_ref
@@ -29,9 +33,13 @@ from tests.test_bulk_kernels import SHAPES, _case
 pytest.importorskip("hypothesis")
 from hypothesis import given, settings, strategies as hyp_st  # noqa: E402
 
-# the port's own tile edges: 256 workers per block, 8 rows per block, 32
-# tags per mask word — plus the reference's 128-wide Pallas tiles
-PORT_SHAPES = SHAPES + [(257, 33, 9), (255, 32, 8), (513, 64, 17)]
+# the port's own tile edges: 128-worker blocks of 4 workers a thread, 512
+# rows per block, 32 tags per mask word in chunks of 8 words — plus the
+# reference's 128-wide Pallas tiles
+PORT_SHAPES = SHAPES + [(257, 33, 9), (255, 32, 8), (513, 64, 17),
+                        (131, 257, 513), (5, 31, 3)]
+CSRC = Path(__file__).resolve().parents[1] / \
+    "src/repro_torch/kernels/affinity/csrc"
 
 
 def _assert_bits_equal(a, b):
@@ -161,3 +169,66 @@ def test_tile_edge_property(seed, w_edge, dW, t_edge, dT, r_edge, dR):
     _check_against_ref(_case(max(1, w_edge + dW), max(1, t_edge + dT),
                              max(1, r_edge + dR), seed))
 
+
+
+def test_row_keys_are_one_reset_buffer_per_stream_grown_on_demand():
+    """The bulk kernel's key buffer: ticket 0 then all-ones keys, at least
+    1 + R words, the same tensor for the same (device, stream) until a
+    call needs more rows, a separate one for another stream."""
+    keys = bulk_kernel.RowKeys()
+    cpu = torch.device("cpu")
+    a = keys.get(6, cpu, 1)
+    assert a.dtype == torch.int64 and a.numel() == 64
+    assert int(a[0]) == 0 and bool((a[1:] == -1).all())
+    assert keys.get(63, cpu, 1) is a
+    b = keys.get(64, cpu, 1)
+    assert b is not a and b.numel() == 128 and int(b[0]) == 0
+    assert keys.get(3, cpu, 1) is b
+    assert keys.get(3, cpu, 2) is not b
+    assert keys.get(1100, cpu, 2).numel() >= 1101
+
+
+def test_launch_geometry_mirrors_the_cuda_source():
+    """kernel.BLOCK_ROWS (the wrapper's row limit) is the source's
+    kBlockRows, and the source's rows per warp fit its 32-bit violation
+    words."""
+    src = (CSRC / "affinity_common.cuh").read_text()
+    const = {m[0]: m[1] for m in re.findall(
+        r"constexpr int (k\w+) = ([^;]+);", src)}
+    assert const["kWarps"] == "16" and const["kRowsPerWarp"] == "32"
+    assert kernel.BLOCK_ROWS == 16 * 32
+    assert "kBlockRows = kWarps * kRowsPerWarp" in src
+    assert kernel.MAX_ROWS == 65535 * kernel.BLOCK_ROWS
+
+
+def test_card_cases_cover_the_kernels_edges():
+    """chip_smoke.AFFINITY_CASES, which the card checks run, reach every
+    edge of the kernels' geometry: W = 1, 3, 5, 16385 and off a multiple of
+    4, T = 1, 31, 32, 33, 513 (each occ load path: a multiple of 32, at most
+    32, any other; several register chunks), R one past a block's rows."""
+    import chip_smoke
+
+    Ws = {c[0] for c in chip_smoke.AFFINITY_CASES}
+    Ts = {c[1] for c in chip_smoke.AFFINITY_CASES}
+    Rs = {c[2] for c in chip_smoke.AFFINITY_CASES}
+    assert {1, 3, 5, 16385} <= Ws and any(w % 4 for w in Ws if w > 4)
+    assert {1, 31, 32, 33, 513} <= Ts
+    assert any(t % 32 == 0 and (t + 31) // 32 > 8 for t in Ts)
+    assert kernel.BLOCK_ROWS + 1 in Rs
+    assert any(r > 2 * kernel.BLOCK_ROWS for r in Rs)
+
+
+def test_every_probe_variant_still_applies_to_the_source():
+    """tools/affinity_variants.py's text substitutions all match the
+    current affinity_common.cuh, so the probe builds every variant."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "affinity_variants.py"
+    spec = importlib.util.spec_from_file_location("affinity_variants", path)
+    affinity_variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(affinity_variants)
+    for name in affinity_variants.VARIANTS:
+        text = affinity_variants.variant_text(name)
+        assert (name == "kernel") == (
+            text == (CSRC / "affinity_common.cuh").read_text())

@@ -14,7 +14,8 @@ import torch
 import chip_smoke
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
-from repro_torch.kernels.affinity import affinity_valid, bulk_decide
+from repro_torch.kernels.affinity import (KERNELS, affinity_valid,
+                                          bulk_decide, bulk_kernel)
 from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref
 from repro_torch.kernels.affinity.ref import affinity_valid_ref
 
@@ -27,21 +28,90 @@ def card():
         pytest.skip("needs an NVIDIA GPU with CUDA")
 
 
-@pytest.mark.parametrize("W,T,R", [(1, 1, 1), (130, 5, 257), (16385, 3, 129),
-                                   (16384, 4, 3), (257, 33, 9),
-                                   (16384, 512, 512)])
-def test_kernels_equal_plain_versions_on_the_card(card, W, T, R):
-    ins, (strat, warm) = chip_smoke.on_card(
-        chip_smoke.kernel_case(W, T, R, seed=W + T + R))
-    assert torch.equal(affinity_valid(*ins), affinity_valid_ref(*ins))
-    got = bulk_decide(*ins, strat, warm)
-    want = bulk_decide_ref(*ins, strat, warm)
+def _assert_bulk_equal(got, want):
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
     assert torch.equal(got[2], want[2])
+
+
+def _keys_are_reset():
+    """Every per-stream key buffer as a launch must leave it: ticket 0,
+    every key all ones."""
+    for buf in bulk_kernel.ROW_KEYS.buffers.values():
+        assert int(buf[0]) == 0 and bool((buf[1:] == -1).all())
+
+
+@pytest.mark.parametrize("W,T,R", [*chip_smoke.AFFINITY_CASES, (257, 33, 9)])
+def test_kernels_equal_plain_versions_on_the_card(card, W, T, R):
+    ins, (strat, warm) = chip_smoke.on_card(
+        chip_smoke.kernel_case(W, T, R, seed=W + T + R))
+    before = [k.launches for k in KERNELS]
+    assert torch.equal(affinity_valid(*ins), affinity_valid_ref(*ins))
+    got = bulk_decide(*ins, strat, warm)
+    _assert_bulk_equal(got, bulk_decide_ref(*ins, strat, warm))
     assert int(got[2][0]) == 0  # the all-tied row: lowest index
     if R > 1:
         assert int(got[2][1]) == -1  # the row with no valid worker
+    assert [k.launches for k in KERNELS] == [n + 1 for n in before]
+    _keys_are_reset()
+
+
+def test_winners_are_the_same_in_every_run_on_the_card(card):
+    """20 calls of one wave at the 512-tag scale, with many tied scores
+    (strategy best_first, warmth 0..2): the atomics' order never moves a
+    winner."""
+    case = chip_smoke.kernel_case(16384, 512, 512, seed=21)
+    case[9][:] = 0
+    ins, extra = chip_smoke.on_card(case)
+    first = bulk_decide(*ins, *extra)
+    _assert_bulk_equal(first, bulk_decide_ref(*ins, *extra))
+    for _ in range(19):
+        assert torch.equal(bulk_decide(*ins, *extra)[2], first[2])
+
+
+def test_back_to_back_calls_and_two_streams_keep_their_keys_on_the_card(card):
+    """Calls of different R back to back on one stream (the key buffer
+    grows between them), then two waves at once on two streams: each equals
+    its plain version, and every key buffer is left reset."""
+    cases = [chip_smoke.on_card(chip_smoke.kernel_case(4099, 40, R,
+                                                       seed=R))
+             for R in (3, 1100, 5, 700)]
+    want = [bulk_decide_ref(*ins, *extra) for ins, extra in cases]
+    got = [bulk_decide(*ins, *extra) for ins, extra in cases]
+    for g, w in zip(got, want):
+        _assert_bulk_equal(g, w)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for _ in range(5):
+        got = [None, None]
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[i] = bulk_decide(*cases[i + 1][0], *cases[i + 1][1])
+        torch.cuda.synchronize()
+        for g, w in zip(got, want[1:3]):
+            _assert_bulk_equal(g, w)
+    _keys_are_reset()
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_kernels_take_misaligned_inputs_on_the_card(card, offset):
+    """Contiguous inputs that start off a 16-byte boundary (slices of a
+    larger buffer) take the kernels' scalar paths and give the same
+    bits."""
+    W, T, R = 1028, 64, 20
+    ins, extra = chip_smoke.on_card(chip_smoke.kernel_case(W, T, R, seed=9))
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    ins = tuple(shifted(t) for t in ins)
+    extra = tuple(shifted(t) for t in extra)
+    assert torch.equal(affinity_valid(*ins), affinity_valid_ref(*ins))
+    _assert_bulk_equal(bulk_decide(*ins, *extra),
+                       bulk_decide_ref(*ins, *extra))
 
 
 def test_main_path_on_the_card_equals_the_plain_versions(card):

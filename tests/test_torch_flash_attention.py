@@ -65,8 +65,8 @@ def test_flash_attention_equals_the_reference(B, Sq, Skv, H, K, hd, causal,
     got = flash_attention(tq, tk, tv, causal=causal, window=window)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     assert err(want, got) < tol
-    assert torch.equal(flash_attention(tq, tk, tv, causal=causal,
-                                       window=window, backend="ref"), got)
+    assert torch.equal(fa_ops.flash_attention_ref(tq, tk, tv, causal=causal,
+                                                  window=window), got)
 
 
 @pytest.mark.parametrize("impl", ["direct", "chunked", "chunked2d", "flash"])
@@ -138,8 +138,8 @@ def test_cpu_tensors_take_the_plain_version_and_nothing_else(monkeypatch):
     meta = torch.zeros((1, 8, 2, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa_ops.flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
-    with pytest.raises(ValueError, match="unknown backend"):
-        fa_ops.flash_attention(tq, tk, tv, backend="pallas")
+    with pytest.raises(TypeError, match="backend"):
+        fa_ops.flash_attention(tq, tk, tv, backend="ref")
     assert calls == ["ref"]
     before = fa_kernel.KERNEL.launches
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
@@ -291,3 +291,16 @@ def test_bf16_check_refuses_an_output_that_left_out_the_tile(part):
         causal=True, window=window, chunk=64)
     with pytest.raises(AssertionError, match="x the tolerance of an element"):
         chip_smoke.flash_bf16_check(got, tq, tk, tv, True, window, tile)
+
+
+@pytest.mark.parametrize("how", ["positional", "keyword"])
+def test_flash_attention_refuses_positions(how):
+    """The kernel takes positions 0..S-1 only, so the entry has no position
+    arguments: passing them is a TypeError, not a silently wrong answer."""
+    _, (tq, tk, tv) = both(qkv(3, 1, 8, 8, 2, 1, 64), "f32")
+    pos = torch.arange(8, dtype=torch.int32) + 5
+    with pytest.raises(TypeError):
+        if how == "positional":
+            flash_attention(tq, tk, tv, pos, pos)
+        else:
+            flash_attention(tq, tk, tv, q_pos=pos, kv_pos=pos)
