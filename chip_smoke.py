@@ -87,6 +87,22 @@ Phases, one line each (every time beside the card's name and power limit):
    decode ms per token, scheduling us per request, and where one prefill's
    and one decode step's time goes (scan kernel, matrix products, the
    rest, idle share);
+12. trace path — ``TraceWorkload`` on the port's ``ClusterSim``: the paper
+   testbed replicated 2731 times (16,386 workers, two zones) behind a
+   ``fixed_ttl`` warm pool.  Run A: the ``poisson`` scenario at 4 arrivals/s
+   a replica, over the shortest window holding 4096 arrivals, decided one
+   arrival at a time through ``affinity_valid`` with the obs plane (tracer,
+   stage timers) and an active resilience bundle with retry attached, the
+   ``us`` zone killed and healed mid-window by the chaos harness; its
+   records, rng tail and decision log must equal the ``device="cpu"``
+   run's, its records and rng tail the float64 ``backend="np"`` run's, its
+   Chrome trace must validate, work must be conserved per worker, and
+   every lost activation must be retried or counted lost; one slice of it
+   runs again under the profiler for the device's idle share.  Run B: 64
+   ticks of 512 same-tick arrivals through the wave batcher, untraced, one
+   ``bulk_decide`` launch a wave; its records must equal the same trace
+   decided one arrival at a time on the card, the ``device="cpu"`` run's
+   and the float64 twin's;
 
 then a ``{"kernels": [...]}`` line, the card line, and the result line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -100,6 +116,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import random
 import re
 import statistics
@@ -115,7 +132,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.cluster.topology import two_pod_cells  # noqa: E402
+from repro_torch.cluster.simulator import (ClusterSim,  # noqa: E402
+                                           SimParams)
+from repro_torch.cluster.topology import (WorkerSpec,  # noqa: E402
+                                          paper_testbed, two_pod_cells)
 from repro_torch.configs.registry import (FALCON_MAMBA_7B,  # noqa: E402
                                           GEMMA3_4B)
 from repro_torch.core.ast import (AAppScript, Affinity, Block,  # noqa: E402
@@ -135,9 +155,20 @@ from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.models import (init_cache, init_model,  # noqa: E402
                                 model_decode_step, model_forward)
 from repro_torch.models.transformer import lm_logits  # noqa: E402
+from repro_torch.obs import Obs, validate_chrome_trace  # noqa: E402
 from repro_torch.platform import Platform  # noqa: E402
+from repro_torch.pool import StartCosts, WarmPool, make_policy  # noqa: E402
+from repro_torch.resilience import (HEAL_ZONE, KILL_ZONE,  # noqa: E402
+                                    ChaosHarness, Fault, Resilience,
+                                    RetryPolicy)
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 from repro_torch.train.step import make_prefill_step  # noqa: E402
+from repro_torch.workload import (COMPUTE_S, FUNCTION_MIX,  # noqa: E402
+                                  Arrival, ReplayConfig, RunResult,
+                                  TraceWorkload, build_trace,
+                                  register_functions)
+from repro_torch.workload.replay import (build_script,  # noqa: E402
+                                         chrome_trace)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1511,6 +1542,346 @@ def time_scan(seed: int, baseline=None):
 
 
 # --------------------------------------------------------------------------- #
+# 12. the trace-driven decision path: TraceWorkload on ClusterSim
+# --------------------------------------------------------------------------- #
+
+# the cluster: benchmarks/simperf.py's scaled_testbed (the paper testbed,
+# 2 zones of 2 x (2 vCPU / 2 GB) + 1 x (1 vCPU / 1 GB), replicated) at the
+# decision rig's W of about 16384, behind benchmarks/coldstart.py's pool
+TRACE_REPLICAS = 2731  # x 6 = 16,386 workers
+TRACE_RATE = 4.0  # arrivals/s a replica (simperf: 192 over 48 replicas)
+TRACE_TTL = 3.0
+TRACE_BUDGET_MB = 512.0
+TRACE_COSTS = {"cold": 0.5, "warm": 0.1, "hot": 0.0}
+TRACE_SEED = 0
+# run A: the poisson window is cut, never the rate or the cluster, to the
+# shortest multiple of TRACE_STEP that holds TRACE_MIN_ARRIVALS arrivals;
+# one zone dies and heals at BENCH_overload.json's 30/90 and 55/90 of it
+TRACE_MIN_ARRIVALS = 4096
+TRACE_STEP = 0.05
+TRACE_ZONE = "us"
+KILL_AT, HEAL_AT = 30.0 / 90.0, 55.0 / 90.0
+TRACE_SLICE = 512  # the arrivals of run A's profiled slice
+# run B: WAVE_TICKS ticks WAVE_DT apart of WAVE same-tick arrivals each
+WAVE_TICKS = 64
+WAVE_DT = 0.5
+TRACE_RECORD_FIELDS = ("function", "worker", "t_submit", "latency",
+                       "start_kind", "failed", "origin_zone", "arrival_id",
+                       "t_root", "activation_id", "tenant", "attempts")
+
+
+def scaled_testbed(k: int):
+    """The paper's 6-worker / 2-zone layout replicated ``k`` times (a copy
+    of ``benchmarks/simperf.py``'s, which imports the JAX package)."""
+    out = {}
+    for i in range(k):
+        for spec in paper_testbed().values():
+            name = f"{spec.name}r{i}"
+            out[name] = WorkerSpec(name, spec.zone, spec.vcpus,
+                                   spec.memory_mb)
+    return out
+
+
+def trace_sim(replicas: int) -> ClusterSim:
+    """A fresh simulator over ``replicas`` testbed copies with a
+    ``fixed_ttl`` warm pool and the scenario functions registered."""
+    pool = WarmPool(make_policy("fixed_ttl", ttl=TRACE_TTL),
+                    costs=StartCosts(**TRACE_COSTS),
+                    budget_mb=TRACE_BUDGET_MB, hot_window=1.0)
+    sim = ClusterSim(scaled_testbed(replicas), SimParams(), seed=TRACE_SEED,
+                     pool=pool)
+    register_functions(sim.registry)
+    return sim
+
+
+def poisson_window(replicas: int, min_arrivals: int = TRACE_MIN_ARRIVALS):
+    """Run A's trace: the ``poisson`` scenario at TRACE_RATE a replica over
+    the shortest window (a multiple of TRACE_STEP) holding
+    ``min_arrivals`` arrivals.  Returns the window and the trace."""
+    steps = 1
+    while True:
+        duration = round(steps * TRACE_STEP, 6)
+        trace = build_trace("poisson", duration=duration,
+                            rate=TRACE_RATE * replicas, seed=TRACE_SEED)
+        if len(trace) >= min_arrivals:
+            return duration, trace
+        steps += 1
+
+
+def wave_trace(ticks: int = WAVE_TICKS, per_tick: int = WAVE):
+    """Run B's trace: ``ticks`` ticks WAVE_DT apart, each ``per_tick``
+    same-tick arrivals drawn from the scenarios' root mix (api / thumb /
+    etl by their arrival weights) with a seeded generator."""
+    names = [n for n, (_m, _t, _c, wt) in FUNCTION_MIX.items()
+             if wt > 0 and n != "divide"]
+    weights = [FUNCTION_MIX[n][3] for n in names]
+    mix = random.Random(TRACE_SEED + 7)
+    return [Arrival(t=i * WAVE_DT, function=f) for i in range(ticks)
+            for f in mix.choices(names, weights, k=per_tick)]
+
+
+def records_equal(a, b) -> bool:
+    """Record for record, every field and attribution component, NaN
+    equal to NaN (``tests/test_bulk_wave.py``'s comparison)."""
+    def feq(x, y):
+        if isinstance(x, float) and isinstance(y, float):
+            return x == y or (math.isnan(x) and math.isnan(y))
+        return x == y
+
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a, b):
+        if not all(feq(getattr(ra, k), getattr(rb, k))
+                   for k in TRACE_RECORD_FIELDS):
+            return False
+        ca, cb = ra.components, rb.components
+        if (ca is None) != (cb is None):
+            return False
+        if ca is not None and (ca.keys() != cb.keys() or not all(
+                feq(ca[k], cb[k]) for k in ca)):
+            return False
+    return True
+
+
+def traced_run(replicas: int, duration: float, trace, *, outage=True,
+               **platform_kw):
+    """Run A's set-up: a fresh simulator behind the port's Platform with
+    the obs plane (tracer and stage timers) and an active resilience
+    bundle with retry, the whatif script under ``best_first`` (``i``
+    affine to ``d``), and (``outage``) the zone outage armed.  Returns the
+    simulator and a callable that drives the trace and returns what the
+    checks read."""
+    sim = trace_sim(replicas)
+    obs = Obs.enabled(timers=True)
+    res = Resilience.enabled(retry=RetryPolicy())
+    plat = Platform.for_sim(sim, build_script("best_first"), obs=obs,
+                            resilience=res, **platform_kw)
+    rng = random.Random(TRACE_SEED + 1)
+    wl = TraceWorkload(sim, plat.placer(rng), COMPUTE_S, script=plat.script,
+                       obs=obs, resilience=res)
+    lost = []
+    kill_zone = wl.fail_zone
+
+    def fail_zone(zone):  # what the harness's kill loses, kept
+        out = kill_zone(zone)
+        lost.extend(out)
+        return out
+
+    wl.fail_zone = fail_zone
+    harness = ChaosHarness([
+        Fault(KILL_AT * duration, KILL_ZONE, TRACE_ZONE),
+        Fault(HEAL_AT * duration, HEAL_ZONE, TRACE_ZONE)] if outage else [])
+    harness.arm(wl)
+    wl.load(trace)
+
+    def drive():
+        t0 = time.perf_counter()
+        sim.run()
+        wall = time.perf_counter() - t0
+        run = RunResult(
+            config=ReplayConfig("poisson", duration=duration,
+                                rate=TRACE_RATE * replicas, seed=TRACE_SEED),
+            trace=tuple(trace), records=tuple(wl.records),
+            jsonl=obs.tracer.to_jsonl(),
+            rng_tail=tuple(rng.random() for _ in range(4)), obs=obs,
+            platform=plat)
+        return {"run": run, "sim": sim, "res": res, "lost": lost,
+                "chaos_log": list(harness.log), "wall_s": wall,
+                "decisions": plat.session.stats["decisions"]}
+
+    return sim, drive
+
+
+def check_traced(out, twins) -> dict:
+    """Run A's checks: records equal to each twin's (NaN-aware), rng tails
+    equal, the tracer's jsonl byte-equal to the first twin's, the Chrome
+    trace valid, work conserved per worker, the outage fired, and every
+    activation the outage lost either retried or counted lost for good."""
+    run, sim, res = out["run"], out["sim"], out["res"]
+    for name, twin in twins.items():
+        if not records_equal(run.records, twin["run"].records):
+            raise AssertionError(f"run A's records differ from the {name} "
+                                 "twin's")
+        if run.rng_tail != twin["run"].rng_tail:
+            raise AssertionError(f"run A's rng tail differs from the {name} "
+                                 "twin's")
+    first = next(iter(twins.values()))["run"]
+    if run.jsonl != first.jsonl:
+        raise AssertionError("run A's decision log differs from the "
+                             f"{next(iter(twins))} twin's")
+    errs = validate_chrome_trace(chrome_trace(run))
+    if errs:
+        raise AssertionError(f"run A's Chrome trace is invalid: {errs[:5]}")
+    if sim.has_compute():
+        raise AssertionError("run A left tasks running")
+    for w in sim.workers:
+        d, lw, s = (sim.delivered_work(w), sim.lost_work(w),
+                    sim.submitted_work(w))
+        if abs(d + lw - s) > 1e-6 * max(1.0, s):
+            raise AssertionError(f"run A: worker {w} delivered {d} + lost "
+                                 f"{lw} != submitted {s}")
+    retries = res.ledger.total_retries
+    if len(out["chaos_log"]) != 2 or not out["lost"]:
+        raise AssertionError(f"run A's outage did not fire or lost nothing: "
+                             f"{out['chaos_log']}, {len(out['lost'])} lost")
+    if len(out["lost"]) != retries + res.permanent_lost:
+        raise AssertionError(f"run A lost {len(out['lost'])} activations "
+                             f"but retried {retries} and counted "
+                             f"{res.permanent_lost} lost")
+    return {"arrivals": len(run.trace), "records": len(run.records),
+            "decisions": out["decisions"], "lost": len(out["lost"]),
+            "retries": retries, "permanent_lost": res.permanent_lost,
+            "jsonl_bytes": len(run.jsonl)}
+
+
+def wave_run(replicas: int, trace, *, batched: bool, **platform_kw):
+    """Run B: a fresh simulator behind an untraced Platform with no
+    resilience bundle, ``best_first`` everywhere, and (``batched``) the
+    wave batcher, so each same-tick group is one fused bulk decision.
+    Returns the records, the rng tail, the wall seconds, the events and
+    the session's wave counters."""
+    sim = trace_sim(replicas)
+    plat = Platform.for_sim(sim, build_script("best_first"), **platform_kw)
+    rng = random.Random(TRACE_SEED + 1)
+    wl = TraceWorkload(sim, plat.placer(rng), COMPUTE_S, script=plat.script,
+                       batcher=plat.batch_placer(rng) if batched else None)
+    wl.load(trace)
+    t0 = time.perf_counter()
+    sim.run()
+    wall = time.perf_counter() - t0
+    flat = getattr(plat.session, "flat", plat.session)
+    return {"records": list(wl.records),
+            "rng_tail": tuple(rng.random() for _ in range(4)),
+            "wall_s": wall, "events": sim.stats["events"],
+            "bulk_waves": flat.stats["bulk_waves"],
+            "bulk_fallback": flat.stats["bulk_fallback"]}
+
+
+def stage_timers(obs) -> dict:
+    """The obs stage-timer histograms (host perf_counter seconds, sampled
+    1 in 128 decisions) as the registry snapshots them."""
+    snap = obs.snapshot()
+    return {k: v for k, v in snap.items() if k.startswith("sched.stage.")}
+
+
+def slice_idle_share(replicas: int, duration: float, trace,
+                     device="cuda") -> dict:
+    """Run A's first arrivals, at most TRACE_SLICE of them and all before
+    its outage (so decided on the same state as in run A), again under
+    ``torch.profiler``, from the start of the run to the last of them: the
+    host wall time, the device time summed over every kernel and copy, and
+    the device's idle share (1 - device / wall; one stream, so kernels do
+    not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = min(TRACE_SLICE,
+            sum(a.t < KILL_AT * duration for a in trace))
+    last = trace[n - 1].t
+    sim, drive = traced_run(replicas, duration, trace[:n], outage=False,
+                            device=device)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    span = {}
+
+    def stop():  # after the last arrival's decision (its event is earlier)
+        torch.cuda.synchronize()
+        span["wall_ms"] = (time.perf_counter() - span["t0"]) * 1e3
+        prof.stop()
+
+    sim.at(last, stop)
+    torch.cuda.synchronize()
+    prof.start()
+    span["t0"] = time.perf_counter()
+    drive()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return {"arrivals": n, "wall_ms": span["wall_ms"],
+            "device_ms": busy, "idle_share": 1.0 - busy / span["wall_ms"]}
+
+
+def trace_path(replicas: int = TRACE_REPLICAS, device="cuda", *,
+               min_arrivals: int = TRACE_MIN_ARRIVALS,
+               ticks: int = WAVE_TICKS, per_tick: int = WAVE) -> dict:
+    """Phase 12: runs A and B on ``replicas`` testbed copies, each held to
+    its twins (``device="cpu"``: the kernels' plain versions; the float64
+    ``backend="np"``), with the launch counters reset just before the run
+    on ``device`` and read just after.  On the card, one slice of run A is
+    run again under the profiler.  Returns the numbers printed."""
+    workers = 6 * replicas
+    duration, trace = poisson_window(replicas, min_arrivals)
+    on_card = torch.device(device).type == "cuda"
+
+    # run A: per arrival, traced, with resilience and an outage
+    _sim, drive = traced_run(replicas, duration, trace, device=device)
+    for k in KERNELS:
+        k.launches = 0
+    a = drive()
+    a_launches = {k.name: k.launches for k in KERNELS}
+    twins = {"cpu": traced_run(replicas, duration, trace, device="cpu")[1](),
+             "np": traced_run(replicas, duration, trace, backend="np")[1]()}
+    a_checks = check_traced(a, twins)
+    if on_card and not a_launches["affinity_valid"] > 0:
+        raise AssertionError(f"run A launched no affinity_valid: "
+                             f"{a_launches}")
+    a_out = {"workers": workers, "window_s": duration,
+             "rate_per_s": TRACE_RATE * replicas, **a_checks,
+             "chaos_log": a["chaos_log"],
+             "wall_s": a["wall_s"], "events": a["sim"].stats["events"],
+             "events_per_s": a["sim"].stats["events"] / a["wall_s"],
+             "us_per_decision": a["wall_s"] / a["decisions"] * 1e6,
+             "np_twin_wall_s": twins["np"]["wall_s"],
+             "np_twin_us_per_decision":
+                 twins["np"]["wall_s"] / twins["np"]["decisions"] * 1e6,
+             "cpu_twin_wall_s": twins["cpu"]["wall_s"],
+             "launches": a_launches,
+             "stage_timers_host_s": stage_timers(a["run"].obs),
+             "reduced": {"window_s": duration,
+                         "why": f"the shortest multiple of {TRACE_STEP} s "
+                                f"holding {min_arrivals} arrivals at the "
+                                "full rate and cluster"}}
+    if on_card:
+        a_out["slice"] = slice_idle_share(replicas, duration, trace, device)
+
+    # run B: same-tick waves through the fused bulk pass, untraced
+    waves = wave_trace(ticks, per_tick)
+    for k in KERNELS:
+        k.launches = 0
+    b = wave_run(replicas, waves, batched=True, device=device)
+    b_launches = {k.name: k.launches for k in KERNELS}
+    seq = wave_run(replicas, waves, batched=False, device=device)
+    cpu = wave_run(replicas, waves, batched=True, device="cpu")
+    twin = wave_run(replicas, waves, batched=True, backend="np")
+    for name, other in (("one arrival at a time", seq), ("cpu", cpu),
+                        ("np", twin)):
+        if not records_equal(b["records"], other["records"]) \
+                or b["rng_tail"] != other["rng_tail"]:
+            raise AssertionError(f"run B's records differ from the {name} "
+                                 "run's")
+    # every tick is one wave (WAVE same-tick arrivals) of best_first
+    # wildcard blocks: decide_wave's one fused pass a wave, no per-item
+    # fallback, and no rebuild (nothing completes or churns mid-wave)
+    if b["bulk_waves"] != ticks or b["bulk_fallback"]:
+        raise AssertionError(f"run B: {b['bulk_waves']} waves, "
+                             f"{b['bulk_fallback']} fell back")
+    if on_card and b_launches != {"affinity_valid": 0,
+                                  "bulk_decide": ticks}:
+        raise AssertionError(f"run B launched {b_launches}, expected one "
+                             f"bulk_decide a wave ({ticks})")
+    n = len(waves)
+    b_out = {"workers": workers, "ticks": ticks, "wave": per_tick,
+             "arrivals": n, "records": len(b["records"]),
+             "wall_s": b["wall_s"], "events": b["events"],
+             "events_per_s": b["events"] / b["wall_s"],
+             "us_per_wave_decision": b["wall_s"] / n * 1e6,
+             "sequential_wall_s": seq["wall_s"],
+             "sequential_us_per_decision": seq["wall_s"] / n * 1e6,
+             "np_twin_wall_s": twin["wall_s"],
+             "np_twin_us_per_wave_decision": twin["wall_s"] / n * 1e6,
+             "cpu_wall_s": cpu["wall_s"], "launches": b_launches}
+    return {"A": a_out, "B": b_out}
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main(argv=None) -> int:
@@ -1740,6 +2111,12 @@ def main(argv=None) -> int:
     print(f"SSM serving end to end {tag}: {json.dumps(ssm_serving)}",
           flush=True)
 
+    # 12. the trace-driven decision path at 16,386 workers
+    trace = trace_path()
+    for run in ("A", "B"):
+        print(f"trace path {tag}: run {run}: {json.dumps(trace[run])}",
+              flush=True)
+
     rows = []
     for k in KERNELS:
         name = k.name
@@ -1750,7 +2127,10 @@ def main(argv=None) -> int:
                      "max_abs_err": errs[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None,
-                     "device_ms": t["device_ms"], "shape": t["shape"]})
+                     "device_ms": t["device_ms"], "shape": t["shape"],
+                     "trace_path_launches": {
+                         run: trace[run]["launches"][name]
+                         for run in ("A", "B")}})
     # the bf16 kernel's launches are the serving run's; the float32
     # kernel's are phase 7's (the float32 period: no bf16 path runs it)
     for k, dtype, n, err in (

@@ -1,2 +1,3 @@
-"""Cluster topology of the port (``topology.py``, a copy of the JAX
-package's); the discrete-event simulator comes with the workload slice."""
+"""Cluster topology and the discrete-event simulator of the port
+(``topology.py``, ``simulator.py``, ``divide_impera.py``: copies of the JAX
+package's)."""

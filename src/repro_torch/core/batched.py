@@ -1,6 +1,6 @@
 """Vectorized/batched aAPP scheduling — the data-plane fast path.
 
-The scalar reference (:mod:`repro.core.scheduler`) is O(blocks x workers x tags)
+The scalar reference (:mod:`repro_torch.core.scheduler`) is O(blocks x workers x tags)
 *per function* in Python.  At controller scale (thousands of pending
 invocations x thousands of cells per wave) that loop dominates scheduling
 latency, so we compile policies to tensors and evaluate Listing-1's ``valid()``
@@ -27,7 +27,7 @@ the same wave).  We preserve *exact* sequential semantics with a dirty-worker
 correction pass: the snapshot matrix answers for untouched workers, and only
 workers whose state changed inside the wave (typically a handful) are
 re-checked scalarly.  ``schedule_wave(...)`` is therefore bit-identical to
-calling :func:`repro.core.scheduler.schedule` in a loop with the same RNG —
+calling :func:`repro_torch.core.scheduler.schedule` in a loop with the same RNG —
 property-tested in ``tests/test_batched_equivalence.py``.
 
 Warmth.  When a ``warmth`` callable is supplied (container-pool residency:
@@ -40,7 +40,7 @@ Incremental data plane.  :func:`schedule_wave` is one-shot: it rebuilds the
 ``StateTensors`` snapshot and its row tensors from scratch every call, which
 at small W costs more than it saves.  :class:`SchedulerSession` is the
 persistent form — tensors maintained by deltas off the
-:class:`~repro.core.state.ClusterState` change feed, per-tag row banks cached
+:class:`~repro_torch.core.state.ClusterState` change feed, per-tag row banks cached
 across waves, decisions evaluated against the *live* tensors (no snapshot
 corrections), warmth read from the pool's sparse residency index.  It is the
 production path: ``serve.Engine`` and the simulator workloads schedule
@@ -319,7 +319,7 @@ class StateTensors:
     """Worker-state snapshot tensors, maintainable by O(1)-ish deltas.
 
     ``from_conf`` builds a fresh snapshot; the ``apply_*`` methods replay the
-    :class:`repro.core.state.ClusterState` change feed onto an existing one so
+    :class:`repro_torch.core.state.ClusterState` change feed onto an existing one so
     a :class:`SchedulerSession` never rebuilds per wave.  Delta exactness:
     ``occ``/``n_funcs`` are integer counters; ``mem_used`` is *recomputed*
     from the per-worker resident-memory table (``_res_mem``, insertion order
@@ -801,7 +801,7 @@ class SchedulerSession:
       and ``tests/test_session_property``);
     * **vectorised warmth** — with a warm pool attached, the warmth column
       comes from the pool's sparse idle-residency table
-      (:meth:`repro.pool.WarmPool.warmth_row`, O(#idle keys) per decision)
+      (:meth:`repro_torch.pool.WarmPool.warmth_row`, O(#idle keys) per decision)
       instead of F x W Python ``warmth()`` calls.
 
     ``warmth`` arguments accept ``"auto"`` (pool-backed ranks when a pool is
@@ -855,7 +855,7 @@ class SchedulerSession:
         # tag universe, so in-flight tag-row indices must be re-derived)
         self._wave_watch: Optional[List[Tuple[str, Dict]]] = None
         self._compactions = 0
-        # observability plane (repro.obs): None until attached — the hot
+        # observability plane (repro_torch.obs): None until attached — the hot
         # paths guard with a single `is not None`, so a session without obs
         # pays nothing (the `overhead.py --obs` disabled-path gate)
         self._tracer = None
@@ -865,7 +865,7 @@ class SchedulerSession:
             self.set_default_script(script)
 
     def attach_obs(self, obs) -> None:
-        """Wire an :class:`repro.obs.Obs` bundle into the session: decision
+        """Wire an :class:`repro_torch.obs.Obs` bundle into the session: decision
         tracing (``obs.tracer``) and hot-path stage timers (``obs.timers``).
         Pass ``None`` to detach."""
         self._tracer = obs.tracer if obs is not None else None
@@ -965,7 +965,7 @@ class SchedulerSession:
         """Install (or hot-swap) the session's default script.
 
         Accepts a plain :class:`AAppScript` or a pre-lowered
-        :class:`repro.core.compile.CompiledScript`.  A compiled script's row
+        :class:`repro_torch.core.compile.CompiledScript`.  A compiled script's row
         banks are adopted wholesale when its tag universe *is* the session's
         (the `Platform.reload_script` path compiles into the live index) or
         when the session is still pristine; otherwise only its AST is taken
@@ -1199,7 +1199,7 @@ class SchedulerSession:
         """Verdict-mode trace of one block: ``(worker, ok, reason)`` per
         considered worker in the reference candidate order, with validity
         read off the tensor ``valid`` row and reason strings from the
-        scalar :func:`repro.core.scheduler.rejection_reason` — the same
+        scalar :func:`repro_torch.core.scheduler.rejection_reason` — the same
         vocabulary (and the same warmth-tier drop rule) `explain()` uses."""
         widx = snap.widx
         order = (snap.workers if cb.wildcard else cb.worker_ids)
@@ -1319,7 +1319,11 @@ class SchedulerSession:
         lifting: a placement can only *worsen* a worker's validity and score
         (memory, capacity, concurrency, load, anti-affinity) except when it
         lands an affine tag, so a cached winner stays the winner until it is
-        itself dirtied, and untouched rows cost nothing.
+        itself dirtied, and untouched rows cost nothing.  The one other
+        exception is live pool warmth: a cold start on a worker evicts idle
+        containers there to make room, and the container the keep-alive
+        policy serves next can be a hotter one, so every row re-checks each
+        committed worker instead of deferring it.
 
         Anything the score encoding can't express bit-identically falls back
         to the per-item reference path: non-wildcard blocks, strategies
@@ -1673,8 +1677,9 @@ class SchedulerSession:
         def update_row(st: _WaveFn, row: _WaveRow, dirty) -> None:
             must = None
             for j, cols in dirty.items():
-                if j == row.winner or (row.pos_cols and cols
-                                       and not row.pos_cols.isdisjoint(cols)):
+                if j == row.winner or use_pool_warm or (
+                        row.pos_cols and cols
+                        and not row.pos_cols.isdisjoint(cols)):
                     if must is None:
                         must = []
                     must.append(j)
@@ -1693,8 +1698,8 @@ class SchedulerSession:
                     row.seq = n
                     if n - s == 1:  # common case: one commit since last pick
                         j, col = events[s]
-                        if j == row.winner or (col is not None
-                                               and col in row.pos_cols):
+                        if j == row.winner or use_pool_warm or (
+                                col is not None and col in row.pos_cols):
                             recheck(st, row, j)
                         else:
                             row.stale.add(j)

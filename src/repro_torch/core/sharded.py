@@ -1,10 +1,10 @@
 """Zone-sharded control plane: per-zone scheduler shards + two-level routing.
 
-One flat :class:`~repro.core.batched.SchedulerSession` keeps a ``[W, T]``
+One flat :class:`~repro_torch.core.batched.SchedulerSession` keeps a ``[W, T]``
 occupancy tensor for the whole cluster; every decision touches all W
 columns.  Zones bound that: a :class:`ShardedSession` owns one
 ``SchedulerSession`` per zone, each subscribed to *its zone's partition* of
-the :class:`~repro.core.state.ClusterState` change feed (through a
+the :class:`~repro_torch.core.state.ClusterState` change feed (through a
 :class:`ZoneView`), so per-shard tensors stay ``W/Z``-sized and other
 zones' churn never invalidates them.
 
@@ -13,7 +13,7 @@ Decisions route through two levels:
 1. **zone selection** — per candidate block (Listing-1 block order is
    preserved), the zones admitted by the block's ``zone:``/``!zone:`` terms
    (precomputed in the compile pass's
-   :class:`~repro.core.compile.ZonePlan` zone-candidate mask) are ordered
+   :class:`~repro_torch.core.compile.ZonePlan` zone-candidate mask) are ordered
    by a pluggable zone strategy — ``local_first`` (the request's origin
    zone first), ``least_loaded_zone``, ``warmest_zone`` — chosen by the
    block chain's ``topology:`` hint or the session default;
@@ -98,7 +98,7 @@ class ShardedSession:
     ``schedule_wave`` / ``compact`` / ``invalidate`` / ``close`` /
     ``stats`` / ``tag_index``) plus the zone-level extras
     (``origin_zone=`` routing hints, per-zone ``zone_stats`` rollups,
-    zone-aware ``explain``).  The :class:`repro.platform.Platform` facade
+    zone-aware ``explain``).  The :class:`repro_torch.platform.Platform` facade
     builds one transparently whenever the cluster carries more than one
     zone.
     """
@@ -141,7 +141,7 @@ class ShardedSession:
         self._timers = None
 
     def attach_obs(self, obs) -> None:
-        """Wire an :class:`repro.obs.Obs` bundle through the sharded plane:
+        """Wire an :class:`repro_torch.obs.Obs` bundle through the sharded plane:
         the router records route spans / shard_route stage times, the flat
         session and every (current and future) zone shard attach too."""
         self._obs = obs

@@ -1,14 +1,14 @@
 """The :class:`Platform` facade — one object in front of the aAPP stack.
 
 The seed API leaked its internals: every consumer hand-wired parser →
-script → :class:`~repro.core.batched.SchedulerSession` → pool →
+script → :class:`~repro_torch.core.batched.SchedulerSession` → pool →
 engine/simulator.  ``Platform`` owns that wiring:
 
 * a script goes through the full v2 compile pipeline
-  (:func:`repro.core.compile.compile_script`: parse → resolve → validate →
-  lower) once, and the resulting :class:`~repro.core.compile.CompiledScript`
+  (:func:`repro_torch.core.compile.compile_script`: parse → resolve → validate →
+  lower) once, and the resulting :class:`~repro_torch.core.compile.CompiledScript`
   IR is adopted by the incremental scheduling session;
-* decisions come back as structured :class:`~repro.core.decision.Decision`
+* decisions come back as structured :class:`~repro_torch.core.decision.Decision`
   objects (optionally carrying a per-block, per-worker explain-trace via
   :meth:`explain`) instead of bare worker strings;
 * randomness is owned: one seeded ``random.Random`` drives every
@@ -33,7 +33,7 @@ The facade is deliberately thin over the hot path — one
 (the ``benchmarks/overhead.py`` microbench pins the facade tax under 5%,
 the paper's "no noticeable overhead" claim applied at the API layer).
 High-fidelity timing (background prewarm boots, migration latencies,
-processor sharing) stays with :class:`repro.cluster.simulator.ClusterSim`;
+processor sharing) stays with :class:`repro_torch.cluster.simulator.ClusterSim`;
 :meth:`advance` applies planner actions instantaneously.
 
 In the port, decisions run in float32 on ``device`` (the CUDA kernels on
@@ -41,9 +41,9 @@ In the port, decisions run in float32 on ``device`` (the CUDA kernels on
 equal the JAX reference ``Platform(backend="ref")`` bit for bit, and its
 float64 ``backend="np"`` everywhere except where float64 rounding breaks a
 rational ``min_cost`` tie.  ``backend="np"`` selects the float64 host twin.
-The observability and resilience bundles are not ported yet: passing one
-raises ``NotImplementedError`` (``ROADMAP.md``: the obs and resilience
-work of the port).
+The observability (:class:`repro_torch.obs.Obs`) and resilience
+(:class:`repro_torch.resilience.Resilience`) bundles attach as in the
+reference and leave decisions and rng draws unchanged.
 """
 from __future__ import annotations
 
@@ -59,12 +59,6 @@ from repro_torch.core.scheduler import explain as _explain_scalar
 from repro_torch.core.sharded import ShardedSession
 from repro_torch.core.state import Activation, ClusterState, Registry
 from repro_torch.resilience import DEFAULT_TENANT, LostActivation
-
-_NO_OBS = ("the observability plane is not ported yet (ROADMAP.md: the obs "
-           "and resilience work of the port); pass obs=None")
-_NO_RESILIENCE = ("the resilience layer is not ported yet (ROADMAP.md: the "
-                  "obs and resilience work of the port); pass "
-                  "resilience=None")
 
 ClusterLike = Union[None, ClusterState, Mapping[str, float],
                     Iterable[Tuple[str, float]]]
@@ -106,11 +100,6 @@ class Platform:
         obs=None,
         resilience=None,
     ):
-        # checked before anything subscribes to the state's change feed
-        if obs is not None:
-            raise NotImplementedError(_NO_OBS)
-        if resilience is not None:
-            raise NotImplementedError(_NO_RESILIENCE)
         self.state = _as_state(cluster)
         self.registry = registry if registry is not None else Registry()
         if functions:
@@ -163,35 +152,69 @@ class Platform:
                 self.compiled if self.compiled is not None else None,
                 backend=backend, device=device, pool=pool, clock=self.clock)
         self._containers: Dict[str, str] = {}  # activation id -> container id
-        # the observability and resilience hooks stay on their cached-None
-        # branches: neither bundle is ported yet (rejected above)
+        # observability plane (repro_torch.obs.Obs): the tracer reference is
+        # cached so the disabled hot path pays one attribute load + None
+        # check per invoke (`overhead.py --obs` pins it under 1%)
+        # resilience layer (repro_torch.resilience.Resilience): same
+        # cached-None pattern as the tracer — a missing (or disabled) bundle
+        # costs the hot path one attribute load + None check (`overhead.py
+        # --resilience` pins it under 1%), and decisions + rng draws stay
+        # bit-identical (property-tested)
         self.resilience = None
         self._res = None  # the *active* bundle, or None
         self._res_meta: Dict[str, Tuple[str, float]] = {}  # aid -> (tenant, t)
         self.lost_activations = 0  # activations lost to worker failures
-        self.obs = None
+        self.obs = obs
         self._tracer = None
+        if obs is not None:
+            self.attach_obs(obs)
+        if resilience is not None:
+            self.attach_resilience(resilience)
 
     def attach_resilience(self, resilience) -> None:
-        """Detach the resilience bundle (``None``).  The admission, fair
-        queueing and retry layer is not ported yet (``ROADMAP.md``: the obs
-        and resilience work), so attaching a bundle raises
-        ``NotImplementedError``."""
-        if resilience is not None:
-            raise NotImplementedError(_NO_RESILIENCE)
-        self.resilience = None
-        self._res = None
+        """Attach (or, with ``None``, detach) a
+        :class:`repro_torch.resilience.Resilience` bundle.  An *active* bundle
+        turns on per-invoke admission (token buckets + SLO-aware shed) and
+        tenant/elapsed bookkeeping for :meth:`fail_worker`'s structured
+        loss records; a disabled bundle (``Resilience()``) leaves every
+        hot path on its ``None`` fast branch."""
+        self.resilience = resilience
+        active = resilience is not None and resilience.active
+        self._res = resilience if active else None
+        if self.obs is not None and resilience is not None:
+            resilience.register_into(self.obs.registry)
 
     def attach_obs(self, obs) -> None:
-        """Detach the observability bundle (``None``).  The tracer, metrics
-        registry and stage timers are not ported yet (``ROADMAP.md``: the obs
-        and resilience work), so attaching a bundle raises
-        ``NotImplementedError``."""
+        """Attach (or, with ``None``, detach) an :class:`repro_torch.obs.Obs`
+        bundle on a live platform: wires the tracer/timers through the
+        session stack and registers every layer's counters as snapshot-time
+        collectors.  Attaching after construction observes only decisions
+        made from that point on."""
+        self.obs = obs
+        self._tracer = obs.tracer if obs is not None else None
+        self.session.attach_obs(obs)
         if obs is not None:
-            raise NotImplementedError(_NO_OBS)
-        self.obs = None
-        self._tracer = None
-        self.session.attach_obs(None)
+            self._register_obs(obs)
+
+    def _register_obs(self, obs) -> None:
+        """Register every layer's counters as snapshot-time collectors in
+        the obs registry — nothing here runs on the decision path."""
+        reg = obs.registry
+        reg.register_collector("session", lambda: dict(self.session.stats))
+        reg.register_collector("platform", lambda: {
+            "workers": len(self.state.workers()),
+            "tags": len(self.session.tag_index),
+            "lost_activations": self.lost_activations})
+        if self.resilience is not None:
+            self.resilience.register_into(reg)
+        if self.pool is not None:
+            pool = self.pool
+            reg.register_collector("pool", lambda: pool.metrics.snapshot())
+        if self._sharded:
+            reg.register_collector("zone", lambda: self.session.zone_stats())
+        if self.planner is not None and hasattr(self.planner, "stats"):
+            planner = self.planner
+            reg.register_collector("planner", lambda: dict(planner.stats))
 
     # ------------------------------------------------------------------ #
     # constructors
@@ -212,7 +235,7 @@ class Platform:
 
     @classmethod
     def for_sim(cls, sim, source, **kwargs) -> "Platform":
-        """A platform over a :class:`~repro.cluster.simulator.ClusterSim`'s
+        """A platform over a :class:`~repro_torch.cluster.simulator.ClusterSim`'s
         state / registry / pool, on the simulator's virtual clock.  The sim
         keeps ownership of time and container charging; the platform fronts
         script compilation and decisions (``platform.placer(rng)`` is the
@@ -258,7 +281,7 @@ class Platform:
 
     def fail_worker(self, name: str):
         """Worker crash/drain.  Returns one structured
-        :class:`~repro.resilience.LostActivation` per in-flight activation
+        :class:`~repro_torch.resilience.LostActivation` per in-flight activation
         the worker took down (function, tag, tenant, seconds in flight —
         tenant/elapsed are live with a resilience bundle attached, default
         otherwise), destroys those activations' busy containers, drains
@@ -431,7 +454,7 @@ class Platform:
                ) -> Callable[..., Optional[str]]:
         """A ``scheduler_fn`` for the workload driver / simulator: one
         decision per call, returning the worker id (or None) — the shape
-        :class:`repro.workload.TraceWorkload` consumes.  Accepts an optional
+        :class:`repro_torch.workload.TraceWorkload` consumes.  Accepts an optional
         ``zone=`` keyword (the arrival's origin zone) which the sharded
         router uses as its locality hint."""
         rng = rng if rng is not None else self.rng
@@ -593,7 +616,7 @@ class Platform:
                service_times=None, config=None):
         """Run the v4 static passes against the *live* cluster shape.
 
-        Returns an :class:`repro.analysis.AnalysisReport` — never raises on
+        Returns an :class:`repro_torch.analysis.AnalysisReport` — never raises on
         findings (errors ride on ``report.errors``), so operators can probe
         a running platform: per-tag worst-case cost rows, ``over-budget``
         checks, and the reachability verdicts (``unplaceable-chain``,
@@ -640,6 +663,10 @@ class Platform:
                 self.state, self.registry, compiled,
                 backend=self._backend, device=self._device, pool=self.pool,
                 clock=self.clock, zone_strategy=self._zone_strategy)
+            if self.obs is not None:
+                self.session.attach_obs(self.obs)
+                self.obs.registry.register_collector(
+                    "zone", lambda: self.session.zone_stats())
         else:
             self.session.set_default_script(compiled)
         if self._tracer is not None:
@@ -680,7 +707,7 @@ class Platform:
         """Operational counters: session data-plane stats + pool metrics;
         on a zoned platform, per-zone rollups (worker count, resident load,
         shard data-plane counters, idle-container residency) under
-        ``"zones"``.  Shape owned by :mod:`repro.obs.schema`."""
+        ``"zones"``.  Shape owned by :mod:`repro_torch.obs.schema`."""
         from repro_torch.obs import schema
         return schema.platform_stats(self)
 

@@ -4,10 +4,11 @@ through the kernels against the same path through the plain versions on
 the CPU, the flash-attention kernels against their plain version (float32
 within ``tests/test_kernels.py``'s 2e-5, bf16 within the bound of the
 kernel's roundings, ``chip_smoke.FLASH_TOL``), and the selective-scan
-kernel against its plain version within that file's 1e-4.  Every test
-here needs an NVIDIA GPU and skips without one; the module imports neither
-JAX nor the JAX package, so it runs on a machine that has only PyTorch
-built for CUDA."""
+kernel against its plain version within that file's 1e-4, and a short
+trace through ``TraceWorkload`` on ``ClusterSim`` against the same trace on
+the plain versions.  Every test here needs an NVIDIA GPU and skips without
+one; the module imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch built for CUDA."""
 import pytest
 import torch
 
@@ -119,6 +120,18 @@ def test_main_path_on_the_card_equals_the_plain_versions(card):
     want, _ = chip_smoke.drive_main_path(
         chip_smoke.build_rig(4096, device="cpu"))
     assert got == want
+
+
+def test_trace_path_on_the_card_equals_the_plain_versions(card):
+    """A short run A (traced, resilience, zone outage) and run B (waves)
+    of ``chip_smoke``'s trace path at 64 testbed copies (384 workers):
+    every record, rng draw and decision log equal to the ``device="cpu"``
+    run's and the float64 twin's (``trace_path`` raises otherwise), run A
+    through ``affinity_valid``, run B one ``bulk_decide`` a wave."""
+    out = chip_smoke.trace_path(64, min_arrivals=1024, ticks=4,
+                                per_tick=128)
+    assert out["A"]["launches"]["affinity_valid"] == out["A"]["decisions"]
+    assert out["B"]["launches"] == {"affinity_valid": 0, "bulk_decide": 4}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

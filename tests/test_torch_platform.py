@@ -179,12 +179,46 @@ def test_smoke_main_path_equals_np_twin_on_cpu():
 
 
 def test_obs_and_resilience_bundles_are_not_ported_yet():
+    """The name is kept from when the port refused both bundles.  Now both
+    attach, and a hot-swap that upgrades a zoned flat platform to the
+    sharded plane re-attaches obs to the new session (route spans, the
+    ``zone`` collector) as the reference's ``reload_script`` does, with the
+    reference's decision log byte for byte; the roofline oracle is the part
+    still refused."""
+    from repro.obs import Obs as RefObs
+    from repro.resilience import Resilience as RefResilience
     from repro_torch.analysis import RooflineOracle
+    from repro_torch.obs import Obs
+    from repro_torch.resilience import Resilience
 
-    for kw in ({"obs": object()}, {"resilience": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Platform(BATCH_SCRIPT, functions=dict(BATCH_FNS), device="cpu",
-                     **kw)
+    routed = ZONED_SCRIPT.replace("strategy: best_first",
+                                  "strategy: best_first\n  topology: "
+                                  "local_first")
+
+    def run(cls, obs, res, **kw):
+        cluster = {f"w{i}": 24.0 for i in range(6)}
+        zones = {f"w{i}": ("eu", "us")[i % 2] for i in range(6)}
+        plat = cls(ZONED_SCRIPT, cluster=cluster, zones=zones,
+                   functions={"f_api": (2.0, "api")}, seed=1, obs=obs,
+                   resilience=res, **kw)
+        assert not plat._sharded and plat.obs is obs
+        assert plat.resilience is res and plat._res is res
+        rng = random.Random(5)
+        out = [plat.invoke("f_api", rng, zone="eu").worker for _ in range(3)]
+        plat.reload_script(routed)
+        assert plat._sharded and plat.session._tracer is obs.tracer
+        out += [plat.invoke("f_api", rng, zone=z).worker
+                for z in ("us", "eu", "us")]
+        return out, obs.tracer.to_jsonl(), sorted(obs.snapshot())
+
+    obs = Obs.enabled()
+    got = run(Platform, obs, Resilience.enabled(), device="cpu")
+    want = run(RefPlatform, RefObs.enabled(), RefResilience.enabled(),
+               backend="ref")
+    assert got == want
+    assert "route" in {r["kind"] for r in obs.tracer.records()}
+    assert any(k.startswith("zone.") for k in got[2])
+    assert any(k.startswith("resilience.") for k in got[2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RooflineOracle(peak_flops_s=1.0, peak_bytes_s=1.0)
 
