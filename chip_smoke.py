@@ -17,12 +17,13 @@ Phases, one line each (every time beside the card's name and power limit):
    version on its inputs widened to float32, element by element within the
    bound of its two roundings, on the whole inputs and on v restricted to a
    late key tile, each with a dropped key tile shown to exceed 4x that
-   bound, at ragged lengths, Sq != Skv, GQA ratios 1, 2, 4, head dims 64,
-   128, 256, window 1 and a window past the sequence, causal with a window
-   at Sq != Skv; the selective-scan kernel against its plain version within
-   1e-4 at the shapes of ``tests/test_kernels.py``'s sweep and around its
-   tiling (S below and across 64-step chunks, D off its 32-channel tile
-   and off a multiple of 8, every N, float32 and bfloat16 inputs), and on
+   bound, at ragged lengths, Sq != Skv, GQA ratios 1, 2, 4 and the moe and
+   hybrid families' 7 and 8, head dims 64, 128, 256, window 1 and a window
+   past the sequence, causal with a window at Sq != Skv; the selective-scan
+   kernel against its plain version within 1e-4 at the shapes of
+   ``tests/test_kernels.py``'s sweep and around its tiling (S below and
+   across 64-step chunks, D off its 32-channel tile and off a multiple of
+   8, every N, float32 and bfloat16 inputs, and jamba's D = 16384), and on
    a long memory (a = -0.01 exp(normal), S = 2085) within 1e-4
    max(1, max |y|), where the plain version with the state reset at a
    chunk boundary must miss by 100x that;
@@ -54,8 +55,9 @@ Phases, one line each (every time beside the card's name and power limit):
    move by exactly 34 per prefill, the float32 one not at all, and
    ``affinity_valid``'s must move.  Then the bf16 flash kernel against the
    plain version on the q / k / v of the first local and the first global
-   layer, captured from the live prefill (its bound and dropped-tile
-   control as in phase 3), and the float32 kernel on them widened;
+   layer, captured from the live prefill (the captured kinds must be the
+   model's; its bound and dropped-tile control as in phase 3), and the
+   float32 kernel on them widened;
 7. whole model in float32 — one local:global period of gemma3-4b at full
    width (6 layers), S = 2048: prefill logits through the float32 flash
    kernel (6 launches, none of the bf16 one) against the direct path;
@@ -75,7 +77,8 @@ Phases, one line each (every time beside the card's name and power limit):
    first live prefill, within 1e-4 max(1, max |y|);
 10. SSM model in float32 — falcon-mamba-7b at full width with 2 layers,
    S = 2048: the prefill's logits at every position through the kernel
-   against ``backend="ref"`` on the card, within 1e-4 max(1, max |logit|);
+   against its plain version on the card, within 1e-4 max(1, max |logit|)
+   (``model_f32``, which phase 15 runs on jamba);
 11. SSM times — the scan kernel at (1, 4096, 8192, 16) with the serving
    path's types (dt float32, x / b / c bf16): CUDA-event and profiler ms,
    plain ms, the bound and its share of the device time, the MUFU floor,
@@ -103,6 +106,44 @@ Phases, one line each (every time beside the card's name and power limit):
    ``bulk_decide`` launch a wave; its records must equal the same trace
    decided one arrival at a time on the card, the ``device="cpu"`` run's
    and the float64 twin's;
+13. predictive trace — the forecast plug-in on the same cluster:
+   ``benchmarks/coldstart.py``'s predictive column (its script, the
+   ``predictive`` keep-alive over a 512 MB-a-worker pool, an
+   ``ArrivalForecast`` seeded from the script's affinity terms and fed by
+   the driver, a ``ForecastPlanner`` epoching every simulated second with
+   migration cost 0.25 s) on the ``chained`` scenario at 2 roots/s a
+   replica, over a 1.25 s window of roots, stopped after the third planning
+   epoch, decided one arrival at a time through ``affinity_valid``: its
+   records, rng tail, pool metrics and planner stats must equal the
+   ``device="cpu"`` run's and the float64 twin's, some epoch must prewarm,
+   every prewarm and migration target must pass the port's scalar
+   Listing-1 ``valid`` on the state it was planned on, and
+   ``affinity_valid`` must launch once a decision; the same trace under the
+   ``affinity`` policy for its cold-start rate; the planner's host ms per
+   epoch;
+14. MoE serving path — falcon-mamba-7b's weights freed, qwen3-moe-30b-a3b
+   whole (48 layers, 128 experts, top-8, bf16, 60.2 GB, drawn on the card)
+   behind the same engine, deployment, sessions, decodes and cell failure
+   as phase 6, with phase 6's checks (48 bf16 flash launches a prefill,
+   none of the float32 kernel or the scan) and flash held to the plain
+   version on the first layer's captured q / k / v at (1, 4096, 32, 4,
+   64); its prefill, decode and scheduling numbers, where one prefill's and
+   one decode step's time goes, and one ``moe_ffn`` layer alone at the
+   prefill's and the decode's shapes beside its bound;
+15. hybrid and MoE at full width — jamba-1.5-large-398b with 2 layers
+   (attention + dense FFN, mamba + MoE; 23.8 GB) and arctic-480b with 1
+   (attention, MoE with its dense residual; 28.1 GB), each in bf16 through
+   ``model_forward`` / ``model_decode_step``: one prefill of 4096 tokens
+   (bf16 flash launched once an attention layer, the scan once a mamba
+   layer, nothing else) and 8 decode steps from an empty cache, as the
+   serving runner decodes (context 1 to 8), with finite logits; bf16 flash
+   on the captured inputs at (1, 4096, 64, 8, 128) and (1, 4096, 56, 8,
+   128) with its controls, the scan on the captured inputs at D = 16384
+   within 1e-4 max(1, max |y|); jamba's 2 layers in float32 at S = 2048:
+   the logits at every position through the float32 flash and scan kernels
+   against their plain versions on the card within 1e-4 max(1, max
+   |logit|); then bf16 flash at the three models' shapes and the scan at D
+   = 16384 timed as in phases 8 and 11;
 
 then a ``{"kernels": [...]}`` line, the card line, and the result line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -136,11 +177,14 @@ from repro_torch.cluster.simulator import (ClusterSim,  # noqa: E402
                                            SimParams)
 from repro_torch.cluster.topology import (WorkerSpec,  # noqa: E402
                                           paper_testbed, two_pod_cells)
-from repro_torch.configs.registry import (FALCON_MAMBA_7B,  # noqa: E402
-                                          GEMMA3_4B)
+from repro_torch.configs.registry import (  # noqa: E402
+    ARCTIC_480B, FALCON_MAMBA_7B, GEMMA3_4B, JAMBA_15_LARGE, QWEN3_MOE_30B)
 from repro_torch.core.ast import (AAppScript, Affinity, Block,  # noqa: E402
                                   Invalidate, TagPolicy)
+from repro_torch.core.scheduler import candidate_blocks, valid  # noqa: E402
 from repro_torch.core.state import ClusterState, Registry  # noqa: E402
+from repro_torch.forecast import (ArrivalForecast,  # noqa: E402
+                                  ForecastPlanner, PlanConfig, Prewarm)
 from repro_torch.kernels.affinity import (  # noqa: E402
     AFFINITY_VALID_KERNEL, BULK_DECIDE_KERNEL, KERNELS, NO_CAP, NO_CONC,
     affinity_valid, affinity_valid_np, bulk_decide)
@@ -154,6 +198,7 @@ from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.models import (init_cache, init_model,  # noqa: E402
                                 model_decode_step, model_forward)
+from repro_torch.models.moe import moe_ffn  # noqa: E402
 from repro_torch.models.transformer import lm_logits  # noqa: E402
 from repro_torch.obs import Obs, validate_chrome_trace  # noqa: E402
 from repro_torch.platform import Platform  # noqa: E402
@@ -539,8 +584,9 @@ def device_split(fn, iters: int = 50, attempts: int = 3):
     """Device time per call by kernel (and copy) name, from
     ``torch.profiler``: ``{name: {"ms": ms per call, "per_call": events per
     call}}``; empty when the profiler sees no device activity.  A trace
-    that lost events (a count that is not a whole number of calls) is taken
-    again, up to ``attempts`` times; the last one is returned as it is."""
+    that lost events (none at all, or a count that is not a whole number of
+    calls) is taken again, up to ``attempts`` times; the last one is
+    returned as it is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -556,7 +602,8 @@ def device_split(fn, iters: int = 50, attempts: int = 3):
                  for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA
                  and e.self_device_time_total > 0}
-        if all(v["per_call"] == int(v["per_call"]) for v in split.values()):
+        if split and all(v["per_call"] == int(v["per_call"])
+                         for v in split.values()):
             break
     return split
 
@@ -748,9 +795,9 @@ def time_affinity_baseline(base_dir: Path, cases):
 # --------------------------------------------------------------------------- #
 
 #: (B, Sq, Skv, H, K, hd, causal, window): ragged lengths (Sq = 1, 200,
-#: 257), Sq != Skv non-causal, GQA ratios H / K of 1, 2 and 4, head dims 64,
-#: 128 and 256, window 1 and a window past the sequence, and causal with a
-#: window at Sq > Skv and Sq < Skv (the kernel's key-tile bounds)
+#: 257), Sq != Skv non-causal, GQA ratios H / K of 1, 2, 4, 7 and 8, head
+#: dims 64, 128 and 256, window 1 and a window past the sequence, and causal
+#: with a window at Sq > Skv and Sq < Skv (the kernel's key-tile bounds)
 FLASH_CASES = [
     (1, 1, 1, 2, 1, 64, True, None),
     (2, 200, 200, 4, 2, 64, True, None),
@@ -763,6 +810,11 @@ FLASH_CASES = [
     (1, 1000, 1000, 8, 2, 128, True, 100),
     (1, 300, 200, 8, 4, 256, True, 128),
     (1, 200, 300, 4, 2, 64, True, 50),
+    # the moe and hybrid families' GQA ratios: 8 at hd 64 (qwen3-moe-30b-a3b,
+    # 32:4), 8 at hd 128 (jamba-1.5-large-398b, 64:8), 7 (arctic-480b, 56:8)
+    (1, 257, 257, 32, 4, 64, True, None),
+    (1, 300, 300, 64, 8, 128, True, None),
+    (1, 257, 257, 56, 8, 128, True, None),
 ]
 
 
@@ -1055,8 +1107,7 @@ def whole_model_f32(base):
     the direct path, on the same card and weights; the float32 kernel must
     run once per layer and the bf16 kernel not at all.  Returns the largest
     difference, the largest logit and the float32 kernel's launches."""
-    cfg = dataclasses.replace(base, n_layers=base.period, dtype="float32")
-    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(1))
+    cfg, model, _ = full_width(base, base.period, "float32", seed=1)
     g = torch.Generator(device="cuda").manual_seed(6)
     batch = {"tokens": torch.randint(0, cfg.vocab, (1, F32_PROMPT), generator=g,
                                      device="cuda")}
@@ -1083,13 +1134,13 @@ def masked_pairs(S: int, window) -> int:
     return sum(min(i + 1, window) for i in range(S))
 
 
-def time_flash(dtype, window, seed: int):
-    """The flash kernel for ``dtype`` at the serving path's shape
-    (1, 4096, 8, 4, 256), causal with ``window``: CUDA-event ms per call,
-    profiler device ms, the plain version's ms,
+def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256)):
+    """The flash kernel for ``dtype`` at ``shape`` (B, S, H, K, hd;
+    gemma3-4b's serving shape unless given), causal with ``window``:
+    CUDA-event ms per call, profiler device ms, the plain version's ms,
     ``scaled_dot_product_attention``'s CUDA-event and device ms on the same
-    inputs (causal with
-    ``enable_gqa``; the window as an explicit mask) and the bound: the
+    inputs (causal with ``enable_gqa``; the window as an explicit mask) and
+    the bound: the
     larger of every input read once and the output written once over HBM,
     and the mask's useful multiply-adds (q k^T and p v, 4 hd flops per
     admitted pair and head) at the peak rate for the type (dense bf16 on the
@@ -1097,7 +1148,7 @@ def time_flash(dtype, window, seed: int):
     hold the float32 tolerance)."""
     import torch.nn.functional as F
 
-    B, S, H, K, hd = 1, PROMPT, 8, 4, 256
+    B, S, H, K, hd = shape
     q, k, v = flash_inputs(B, S, S, H, K, hd, dtype, seed)
     kern = lambda: fa.flash_attention(q, k, v, causal=True,  # noqa: E731
                                       window=window)
@@ -1128,6 +1179,18 @@ def time_flash(dtype, window, seed: int):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "useful_gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
+
+def full_width(base, n_layers: int, dtype: str = "bfloat16", seed: int = 0):
+    """``base`` at its published widths with ``n_layers`` layers in
+    ``dtype``, drawn on the card from a generator seeded with ``seed``;
+    returns the config, the model and the seconds the draw took."""
+    cfg = dataclasses.replace(base, n_layers=n_layers, dtype=dtype)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    return cfg, model, time.perf_counter() - t0
+
+
 def serve_whole(cfg, package, name: str, capture):
     """``cfg`` whole behind ``serve.Engine``: weights drawn on the card,
     ``capture`` standing in for ``package.<name>`` (the port's kernel
@@ -1138,10 +1201,7 @@ def serve_whole(cfg, package, name: str, capture):
     ``affinity_valid``.  Returns the model, the engine, the runner, the
     scheduling us per request and the launches."""
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    cfg, model, init_s = full_width(cfg, cfg.n_layers, cfg.dtype)
     n_params = sum(p.numel() for p in model.parameters())
     setattr(package, name, capture)
     for k in ALL_KERNELS:
@@ -1175,42 +1235,111 @@ def serve_whole(cfg, package, name: str, capture):
     return model, eng, runner, sched_us, launches
 
 
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` whose mixer is attention (the rest are
+    mamba)."""
+    return sum(cfg.layer_kind(i % cfg.period) != "mamba"
+               for i in range(cfg.n_layers))
+
+
 def serving_path(cfg):
-    """Phase 6: ``cfg`` whole behind ``serve.Engine`` (:func:`serve_whole`),
-    the bf16 flash counter checked at one launch per layer and prefill and
-    the float32 one at none, and both flash kernels held to the plain
-    version on the q / k / v the run captured (bf16 as captured, and the
-    float32 kernel on them widened).  Returns the launches, those
-    comparisons' errors and the run's end-to-end numbers."""
+    """Phases 6 and 14: ``cfg`` whole behind ``serve.Engine``
+    (:func:`serve_whole`), the bf16 flash counter checked at one launch per
+    attention layer and prefill and the float32 flash and scan counters at
+    none, and both flash kernels held to the plain version on the q / k / v
+    of the first layer of each attention kind (global, and local where the
+    model has windowed layers) the run captured (bf16 as captured, and the
+    float32 kernel on them widened).  With MoE FFNs, one MoE layer alone at
+    the prefill's and the decode's shapes (:func:`time_moe`).  Returns the
+    launches, those comparisons' errors and the run's end-to-end
+    numbers."""
     capture = FlashCapture()
     model, eng, runner, sched_us, serve_launches = serve_whole(
         cfg, fa, "flash_attention", capture)
     n_prefills = len(runner.prefill_s)
-    if serve_launches["flash_attention_bf16"] != cfg.n_layers * n_prefills \
-            or serve_launches["flash_attention"] != 0:
+    n_attn = attention_layers(cfg)
+    if serve_launches["flash_attention_bf16"] != n_attn * n_prefills \
+            or serve_launches["flash_attention"] != 0 \
+            or serve_launches["selective_scan"] != 0:
         raise AssertionError(f"serving path launches {serve_launches} for "
-                             f"{n_prefills} prefills of {cfg.n_layers} "
+                             f"{n_prefills} prefills of {n_attn} attention "
                              "layers")
+    kinds = {"local" if cfg.layer_kind(i % cfg.period) == "local"
+             else "global" for i in range(cfg.n_layers)
+             if cfg.layer_kind(i % cfg.period) != "mamba"}
+    if set(capture.seen) != kinds:
+        raise AssertionError(f"serving path captured the attention kinds "
+                             f"{sorted(capture.seen)}, where {cfg.name}'s "
+                             f"layers have {sorted(kinds)}")
     main, main_err, main_f32 = {}, {}, {}
-    for kind in ("local", "global"):
+    for kind in sorted(capture.seen):
         q, k, v, causal, window = capture.seen[kind]
         main_err[kind], main[kind] = compare_flash(q, k, v, causal, window)
         q, k, v = (t.float() for t in (q, k, v))
         main_f32[kind] = compare_flash(q, k, v, causal, window)[0]
+    shapes = {kind: tuple(seen[0].shape)
+              for kind, seen in sorted(capture.seen.items())}
     print(f"flash_attention vs plain at the serving path's inputs (the first"
-          f" local and global layer of the first prefill, "
-          f"{tuple(capture.seen['local'][0].shape)}): the bf16 kernel per "
-          f"element within tolerance, on the whole inputs and on v "
-          f"restricted to a late key tile, each with its dropped-tile "
-          f"control (at least {FLASH_DROP} x tolerance) "
-          f"{json.dumps(main)}; the float32 kernel on the same inputs "
-          f"widened, max abs err {main_f32} (tolerance "
+          f" layer of each attention kind in the first prefill, q {shapes}, "
+          f"{cfg.n_kv_heads} kv heads): the bf16 kernel per element within "
+          f"tolerance, on the whole inputs and on v restricted to a late key"
+          f" tile, each with its dropped-tile control (at least "
+          f"{FLASH_DROP} x tolerance) {json.dumps(main)}; the float32 kernel"
+          f" on the same inputs widened, max abs err {main_f32} (tolerance "
           f"{FLASH_TOL[torch.float32]})", flush=True)
+    capture.seen.clear()
     serving = serving_numbers(cfg, model, runner, sched_us,
                               "flash_fwd_bf16_sm90", "flash")
     serving["flash_vs_plain_main_path"] = {
         "bf16": main, "float32_err": main_f32}
+    moe = next((layer.moe for layer in model.layers
+                if hasattr(layer, "moe")), None)
+    if moe is not None:
+        serving["moe_ffn_layer"] = time_moe(cfg, moe, seed=15)
     return serve_launches, main_err, main_f32, serving
+
+
+def time_moe(cfg, moe, seed: int) -> dict:
+    """One MoE layer alone (``models.moe.moe_ffn``) at the prefill's shape
+    [1, PROMPT, d_model] and the decode's [1, 1, d_model] in the model's
+    dtype, on seeded inputs: CUDA-event and profiler ms, where the device
+    time goes (matrix products against the rest, the top kernels), and the
+    bound: the larger of the weights, x and the output moved once over HBM,
+    and the routed tokens' useful products (2 flops a multiply-add, a
+    product per expert matrix and routing choice) at the bf16 rate.  The
+    GShard dispatch reads every expert's weights whatever the routing, and
+    computes every capacity slot, so the bound counts only what top-k
+    needs; ``routed_bound_ms`` counts only the weights of the experts the
+    routing of these inputs picks (at decode, top_k of them)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    spec, D = cfg.moe, cfg.d_model
+    wbytes = sum(p.numel() * p.element_size() for p in moe.parameters())
+    rbytes = moe.router.numel() * moe.router.element_size()
+    mats = 3 if cfg.mlp_type == "swiglu" else 2
+    out = {}
+    for name, S in (("prefill", PROMPT), ("decode", 1)):
+        x = torch.randn((1, S, D), generator=g, device="cuda").to(
+            moe.w_up.dtype)
+        fn = lambda: moe_ffn(moe, x, spec, cfg.mlp_type)  # noqa: E731
+        io = 2 * x.numel() * x.element_size()
+        flops = 2 * mats * S * spec.top_k * D * spec.d_ff_expert
+        t_bytes, t_ops = (wbytes + io) / HBM_BYTES_PER_S, \
+            flops / BF16_FLOPS_PER_S
+        picked = torch.topk(x.float().reshape(S, D) @ moe.router,
+                            spec.top_k).indices.unique().numel()
+        routed = rbytes + (wbytes - rbytes) * picked / spec.n_experts + io
+        out[name] = {"shape": [1, S, D], "ms": cuda_ms(fn, iters=10,
+                                                       warmup=3),
+                     "device_ms": device_ms(fn, iters=5),
+                     "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "experts_picked": picked,
+                     "routed_bound_ms": max(routed / HBM_BYTES_PER_S,
+                                            t_ops) * 1e3,
+                     "weight_gb": wbytes / 1e9, "useful_gflop": flops / 1e9,
+                     "breakdown": device_breakdown(fn, "\0", "none")}
+    return out
 
 
 def serving_numbers(cfg, model, runner, sched_us, marker: str, label: str):
@@ -1262,7 +1391,8 @@ def serving_numbers(cfg, model, runner, sched_us, marker: str, label: str):
 #: over several chunks; D below one tile and off a tile multiple, on a
 #: multiple of 8 (cp.async staging) and off it (plain-load staging, as is
 #: B > 1 with S N off a multiple of 8); every N (each K = min(N, 4)
-#: instance); float32 and bfloat16 inputs (dt, x, b, c; a is float32)
+#: instance); float32 and bfloat16 inputs (dt, x, b, c; a is float32); and
+#: D = 16384, the widest the serving path gives it
 SCAN_CASES = [
     (2, 64, 32, 4, "float32"),
     (1, 100, 48, 16, "float32"),
@@ -1277,6 +1407,8 @@ SCAN_CASES = [
     (3, 77, 40, 2, "bfloat16"),
     (2, 1, 33, 1, "bfloat16"),
     (1, 203, 72, 4, "bfloat16"),
+    # jamba-1.5-large-398b's d_inner (2 x 8192), over two chunks
+    (1, 70, 16384, 16, "bfloat16"),
 ]
 #: the long-memory case: a = -0.01 exp(normal), so exp(dt a) stays within
 #: ~1e-3 of 1 and the state carries ~1000 steps; S over 32 chunks and
@@ -1403,46 +1535,11 @@ def ssm_serving_path(cfg):
     return launches, err, serving
 
 
-def ssm_model_f32(base):
-    """falcon-mamba-7b at full width with SSM_F32_LAYERS layers in float32:
-    the logits at every position of an F32_PROMPT-token prefill through the
-    scan kernel against the same model with the scan on
-    ``backend="ref"``, on the same card and weights.  Returns the largest
-    difference, the largest logit and the kernel's launches."""
-    cfg = dataclasses.replace(base, n_layers=SSM_F32_LAYERS, dtype="float32")
-    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(1))
-    g = torch.Generator(device="cuda").manual_seed(7)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (1, F32_PROMPT),
-                                     generator=g, device="cuda")}
-
-    def logits():
-        with torch.no_grad():
-            return lm_logits(cfg, model, model_forward(cfg, model, batch))
-
-    ms.SELECTIVE_SCAN_KERNEL.launches = 0
-    kern = logits()
-    launches = ms.SELECTIVE_SCAN_KERNEL.launches
-    scan = ms.selective_scan
-    ms.selective_scan = functools.partial(scan, backend="ref")
-    try:
-        plain = logits()
-    finally:
-        ms.selective_scan = scan
-    torch.cuda.synchronize()
-    err = max_abs_err(kern, plain)
-    top = float(plain.abs().max())
-    if not err <= SCAN_TOL * max(1.0, top) or launches != cfg.n_layers:
-        raise AssertionError(f"float32 falcon-mamba-7b: kernel vs plain scan "
-                             f"logits differ by {err} (bound {SCAN_TOL} x "
-                             f"max(1, {top})), {launches} scan launches")
-    return err, top, launches
-
-
-def scan_serving_inputs(seed: int):
-    """Seeded inputs at the serving path's shape (1, 4096, 8192, 16) with its
-    types (dt float32, x / b / c bf16, a float32)."""
-    B, S, D, N = 1, PROMPT, 2 * FALCON_MAMBA_7B.d_model, \
-        FALCON_MAMBA_7B.ssm.d_state
+def scan_serving_inputs(seed: int, D: int = 2 * FALCON_MAMBA_7B.d_model):
+    """Seeded inputs at the serving path's shape (1, 4096, D, 16), D
+    falcon-mamba-7b's d_inner unless given, with its types (dt float32,
+    x / b / c bf16, a float32)."""
+    B, S, N = 1, PROMPT, FALCON_MAMBA_7B.ssm.d_state
     dt, x, b, c, a = scan_inputs(B, S, D, N, "float32", seed)
     return (dt, *(t.to(torch.bfloat16) for t in (x, b, c)), a)
 
@@ -1474,10 +1571,10 @@ def scan_entry(kernel, dt, x, b, c, a):
     return call, y
 
 
-def time_scan(seed: int, baseline=None):
+def time_scan(seed: int, baseline=None, D: int = 2 * FALCON_MAMBA_7B.d_model):
     """The scan kernel at the serving path's shape and types
-    (:func:`scan_serving_inputs`): CUDA-event ms per call through the
-    package's ``selective_scan``, profiler device ms, the plain version's
+    (:func:`scan_serving_inputs` at ``D``): CUDA-event ms per call through
+    the package's ``selective_scan``, profiler device ms, the plain version's
     ms (a Python loop of 4096 steps: a few calls only) and the bound: the
     larger of every input read once and y written once over HBM, and the
     recurrence's float32 operations (7 per (t, d, n): dt a, exp, abar h,
@@ -1494,7 +1591,7 @@ def time_scan(seed: int, baseline=None):
     kernel's events and device ms on the same inputs, in turns with the
     new one (baseline, new, new, baseline), and its largest difference from
     the plain version."""
-    dt, x, b, c, a = ins = scan_serving_inputs(seed)
+    dt, x, b, c, a = ins = scan_serving_inputs(seed, D)
     B, S, D = dt.shape
     N = a.shape[1]
     kern = lambda: ms.selective_scan(*ins)  # noqa: E731
@@ -1539,6 +1636,141 @@ def time_scan(seed: int, baseline=None):
                            "registers": ptxas_summary(baseline.build_log),
                            **timed}
     return out
+
+
+# --------------------------------------------------------------------------- #
+# 15. the hybrid and MoE families at full width, reduced depth
+# --------------------------------------------------------------------------- #
+
+HYBRID_DECODES = 8
+HYBRID_DEPTHS = {"jamba-1.5-large-398b": 2, "arctic-480b": 1}
+
+
+def hybrid_path(base) -> dict:
+    """Phase 15, one model: ``base`` at full width with
+    HYBRID_DEPTHS[base.name] layers in bf16, through ``model_forward`` /
+    ``model_decode_step``: one prefill of PROMPT tokens with the flash and
+    scan entries captured and every launch counter set to 0 just before it
+    and read just after (one bf16 flash launch per attention layer, one
+    scan launch per mamba layer, nothing else), then HYBRID_DECODES decode
+    steps from an empty cache (no kernel launch), every logit finite; the
+    bf16 flash kernel on the captured q / k / v with its dropped-tile
+    controls, and the scan on the captured inputs within SCAN_TOL x max(1,
+    max |y|).  Returns the numbers printed."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, init_s = full_width(base, HYBRID_DEPTHS[base.name])
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = session_prompt("s0", cfg.vocab)
+    prefill = make_prefill_step(cfg, impl="flash")
+    fcap, scap = FlashCapture(), ScanCapture()
+    fa.flash_attention, ms.selective_scan = fcap, scap
+    for k in ALL_KERNELS:
+        k.launches = 0
+    try:
+        logits = prefill(model, {"tokens": tokens})
+    finally:
+        fa.flash_attention, ms.selective_scan = fcap.kernel, scap.kernel
+    n_attn = attention_layers(cfg)
+    want = {k.name: 0 for k in ALL_KERNELS}
+    want.update(flash_attention_bf16=n_attn,
+                selective_scan=cfg.n_layers - n_attn)
+    finite = bool(torch.isfinite(logits).all())
+    cache = init_cache(cfg, 1, MAX_LEN)
+    tok = tokens[:, -1:]
+    decode_ms = []
+    for _ in range(HYBRID_DECODES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, cache = model_decode_step(cfg, model, cache, tok)
+        tok = out.argmax(-1, keepdim=True)
+        finite &= bool(torch.isfinite(out).all())
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    if launches != want or not finite:
+        raise AssertionError(f"{cfg.name} with {cfg.n_layers} layers: "
+                             f"launches {launches} (want {want}) over one "
+                             f"prefill and {HYBRID_DECODES} decodes, logits "
+                             f"finite: {finite}")
+    flash = {}
+    for kind, (q, k, v, causal, window) in sorted(fcap.seen.items()):
+        err, checks = compare_flash(q, k, v, causal, window)
+        flash[kind] = {"q": list(q.shape), "kv_heads": k.shape[2],
+                       "max_abs_err": err, "checks": checks}
+    fcap.seen.clear()
+    scan = None
+    if scap.first is not None:
+        dt, x, b, c, a = scap.first
+        err, top, median = compare_scan(dt, x, b, c, a, relative=True)
+        scan = {"dt": list(dt.shape), "max_abs_err": err,
+                "tolerance": SCAN_TOL * max(1.0, top),
+                "median_abs_output": median}
+        scap.first = None
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"model": cfg.name, "layers": [
+                f"{layer.kind}+{layer.ffn_kind}" for layer in model.layers],
+            "params_b": n_params / 1e9, "init_s": init_s,
+            "launches": launches, "flash_vs_plain": flash,
+            "scan_vs_plain": scan,
+            "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s_median":
+                PROMPT / statistics.median(prefill_ms) * 1e3,
+            "decode_ms": decode_ms,
+            "decode_ms_per_token_median": statistics.median(decode_ms[1:]),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def model_f32(base, n_layers: int, seed: int) -> dict:
+    """Phases 10 and 15's float32 check: ``base`` at full width with
+    ``n_layers`` layers in float32 (:func:`full_width`, weights drawn from
+    ``seed``), the logits at every position of an F32_PROMPT-token prefill
+    through the kernels (the float32 flash kernel on attention layers, the
+    scan on mamba layers) against the same model with both entries on their
+    plain versions, on the same card and weights, within SCAN_TOL x max(1,
+    max |logit|), each kernel launched once per layer of its kind and no
+    other kernel.  Returns the numbers printed."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, _ = full_width(base, n_layers, "float32", seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, F32_PROMPT),
+                                     generator=g, device="cuda")}
+
+    def logits():
+        with torch.no_grad():
+            return lm_logits(cfg, model,
+                             model_forward(cfg, model, batch, impl="flash"))
+
+    for k in ALL_KERNELS:
+        k.launches = 0
+    kern = logits()
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    flash, scan = fa.flash_attention, ms.selective_scan
+    fa.flash_attention = fa.flash_attention_ref
+    ms.selective_scan = functools.partial(scan, backend="ref")
+    try:
+        plain = logits()
+    finally:
+        fa.flash_attention, ms.selective_scan = flash, scan
+    torch.cuda.synchronize()
+    err = max_abs_err(kern, plain)
+    top = float(plain.abs().max())
+    n_attn = attention_layers(cfg)
+    want = {k.name: 0 for k in ALL_KERNELS}
+    want.update(flash_attention=n_attn, selective_scan=cfg.n_layers - n_attn)
+    if not err <= SCAN_TOL * max(1.0, top) or launches != want:
+        raise AssertionError(f"float32 {cfg.name}: kernels vs plain logits "
+                             f"differ by {err} (bound {SCAN_TOL} x max(1, "
+                             f"{top})), launches {launches}")
+    return {"model": cfg.name, "layers": cfg.n_layers, "S": F32_PROMPT,
+            "max_abs_err": err, "max_abs_logit": top,
+            "tolerance": SCAN_TOL * max(1.0, top), "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 # --------------------------------------------------------------------------- #
@@ -1882,6 +2114,195 @@ def trace_path(replicas: int = TRACE_REPLICAS, device="cuda", *,
 
 
 # --------------------------------------------------------------------------- #
+# 13. the forecast plug-in on the decision path: the predictive trace
+# --------------------------------------------------------------------------- #
+
+# benchmarks/coldstart.py's predictive column, not cut: its script (i affine
+# to d), keep-alive policy, pool, forecast and planner knobs, on phase 12's
+# cluster at coldstart's rate a replica
+PRED_SCRIPT = """
+api:
+  workers: *
+  strategy: random
+img:
+  workers: *
+  strategy: random
+etl:
+  workers: *
+  strategy: random
+d:
+  workers: *
+  strategy: random
+i:
+  workers: *
+  strategy: random
+  affinity: [d]
+"""
+PRED_RATE = 2.0  # arrivals/s a replica (coldstart.py's RATE)
+PRED_TAU = 20.0
+PLAN_INTERVAL = 1.0
+MIGRATE_COST = 0.25
+# the chained scenario (divide-et-impera roots, two impera children each):
+# its DAG-successor forecast drives the planner's prewarms and migrations
+# from the first epoch on, where poisson issues none (coldstart.py's own
+# poisson column: 0 prewarms over 3 seeds of 150 s, BENCH_coldstart.json)
+PRED_SCENARIO = "chained"
+# the window of roots is cut, never the rate or the cluster, to 1.25 s, so
+# that roots still arrive after the first planning epoch; the run stops
+# half an interval after its third epoch.  At 16,386 workers the host time
+# of a decision and of an epoch grows with the pool's containers
+# (WarmPool.used_mb scans the busy containers and idle keys for each
+# worker): a 2.0 s window took 6, 62 and 126 s of epochs and 7 ms a
+# decision besides, the whole script 1,650 s on an H100; and the predictive
+# keep-alive would keep the planner epoching for about a hundred simulated
+# seconds after the window
+PRED_WINDOW = 1.25
+PRED_EPOCHS = 3
+
+
+class Horizon(Exception):
+    """Raised by the event that ends a predictive run."""
+
+
+def _stop():
+    raise Horizon
+
+
+class CheckedPlanner(ForecastPlanner):
+    """The forecast planner with each epoch's host seconds kept and every
+    prewarm and migration target held to the port's scalar Listing-1
+    ``valid`` on the state the epoch planned on (as
+    ``tests/test_forecast.py``'s planner is)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.epoch_s, self.actions = [], []
+
+    def plan(self, conf, pool, now):
+        t0 = time.perf_counter()
+        actions = super().plan(conf, pool, now)
+        self.epoch_s.append(time.perf_counter() - t0)
+        for a in actions:
+            target = a.worker if isinstance(a, Prewarm) \
+                else getattr(a, "dst", None)
+            if target is None:
+                continue
+            blocks = candidate_blocks(self.registry[a.function].tag,
+                                      self.script)
+            if not any(valid(a.function, target, conf, self.registry, b)
+                       for b in blocks):
+                raise AssertionError(f"the planner placed {a.function} on "
+                                     f"{target}, where Listing 1 refuses it")
+        self.actions.extend(actions)
+        return actions
+
+
+def predictive_run(replicas: int, trace, policy: str = "predictive",
+                   **platform_kw) -> dict:
+    """``trace`` through a fresh simulator over ``replicas`` testbed copies
+    behind ``benchmarks/coldstart.py``'s pool under ``policy``, decided one
+    arrival at a time by the port's Platform; with ``predictive``, the
+    arrival forecast (seeded from the script's affinity terms, bound to the
+    policy, fed by the workload driver) and the checked planner on the
+    simulator's epochs, until half an interval after the PRED_EPOCHS-th
+    epoch.  Returns what the checks and the numbers read."""
+    keep = make_policy(policy, ttl=TRACE_TTL)
+    pool = WarmPool(keep, costs=StartCosts(**TRACE_COSTS),
+                    budget_mb=TRACE_BUDGET_MB, hot_window=1.0)
+    sim = ClusterSim(scaled_testbed(replicas), SimParams(), seed=TRACE_SEED,
+                     pool=pool, plan_interval=PLAN_INTERVAL,
+                     migrate_cost=MIGRATE_COST)
+    register_functions(sim.registry)
+    plat = Platform.for_sim(sim, PRED_SCRIPT, **platform_kw)
+    forecast = planner = None
+    if policy == "predictive":
+        forecast = ArrivalForecast(tau=PRED_TAU)
+        forecast.seed_affinity(plat.script, sim.registry)
+        keep.bind(forecast)
+        planner = sim.planner = CheckedPlanner(forecast, plat.compiled,
+                                               sim.registry, PlanConfig())
+    rng = random.Random(TRACE_SEED + 1)
+    wl = TraceWorkload(sim, plat.placer(rng), COMPUTE_S, script=plat.script,
+                       forecast=forecast)
+    wl.load(trace)
+    sim.at((PRED_EPOCHS + 0.5) * PLAN_INTERVAL, _stop)
+    t0 = time.perf_counter()
+    try:
+        sim.run()
+    except Horizon:
+        pass
+    wall = time.perf_counter() - t0
+    return {"records": list(wl.records),
+            "rng_tail": tuple(rng.random() for _ in range(4)),
+            "pool": pool.metrics.snapshot(),
+            "planner": None if planner is None else dict(planner.stats),
+            "planner_epoch_s": None if planner is None else planner.epoch_s,
+            "actions": None if planner is None else planner.actions,
+            "wall_s": wall, "events": sim.stats["events"], "end_s": sim.now,
+            "decisions": plat.session.stats["decisions"]}
+
+
+def predictive_path(replicas: int = TRACE_REPLICAS, device="cuda") -> dict:
+    """Phase 13: the predictive trace on ``device`` with the launch counters
+    reset just before it and read just after, held to its twins
+    (``device="cpu"``: the kernels' plain versions; the float64
+    ``backend="np"``): records, rng tail, the pool's metrics and the
+    planner's stats equal; at least one prewarm; every prewarm and
+    migration target Listing-1 valid (:class:`CheckedPlanner`); one
+    ``affinity_valid`` launch a decision on the card.  Beside it the same
+    trace under the ``affinity`` policy, for the cold-start rate.  Returns
+    the numbers printed."""
+    trace = build_trace(PRED_SCENARIO, duration=PRED_WINDOW,
+                        rate=PRED_RATE * replicas, seed=TRACE_SEED)
+    on_card = torch.device(device).type == "cuda"
+    for k in KERNELS:
+        k.launches = 0
+    run = predictive_run(replicas, trace, device=device)
+    launches = {k.name: k.launches for k in KERNELS}
+    twins = {"cpu": predictive_run(replicas, trace, device="cpu"),
+             "np": predictive_run(replicas, trace, backend="np")}
+    for name, twin in twins.items():
+        for key in ("rng_tail", "pool", "planner"):
+            if run[key] != twin[key]:
+                raise AssertionError(f"the predictive trace's {key} differs "
+                                     f"from the {name} twin's: {run[key]} "
+                                     f"against {twin[key]}")
+        if not records_equal(run["records"], twin["records"]):
+            raise AssertionError("the predictive trace's records differ "
+                                 f"from the {name} twin's")
+    if not run["planner"]["prewarms"] > 0:
+        raise AssertionError(f"no planning epoch issued a prewarm: "
+                             f"{run['planner']}")
+    if on_card and launches != {"affinity_valid": run["decisions"],
+                                "bulk_decide": 0}:
+        raise AssertionError(f"the predictive trace launched {launches} for "
+                             f"{run['decisions']} decisions")
+    aff = predictive_run(replicas, trace, policy="affinity", device=device)
+    epoch_ms = [t * 1e3 for t in run["planner_epoch_s"]]
+    return {"workers": 6 * replicas, "window_s": PRED_WINDOW,
+            "rate_per_s": PRED_RATE * replicas, "arrivals": len(trace),
+            "records": len(run["records"]), "decisions": run["decisions"],
+            "launches": launches, "wall_s": run["wall_s"],
+            "events": run["events"],
+            "us_per_decision": run["wall_s"] / run["decisions"] * 1e6,
+            "np_twin_us_per_decision":
+                twins["np"]["wall_s"] / twins["np"]["decisions"] * 1e6,
+            "cpu_twin_wall_s": twins["cpu"]["wall_s"],
+            "planner": run["planner"],
+            "planner_ms_per_epoch_median": statistics.median(epoch_ms),
+            "planner_ms_per_epoch": epoch_ms,
+            "pool": run["pool"],
+            "cold_start_rate": run["pool"]["cold_start_rate"],
+            "affinity_cold_start_rate": aff["pool"]["cold_start_rate"],
+            "affinity_wall_s": aff["wall_s"],
+            "end_s": run["end_s"],
+            "reduced": {"window_s": PRED_WINDOW, "epochs": PRED_EPOCHS,
+                        "why": "a window of roots at the full rate and "
+                               "cluster, the run stopped after its third "
+                               "planning epoch"}}
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main(argv=None) -> int:
@@ -2089,12 +2510,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 10. the SSM model at full width in float32: kernel vs plain scan
-    s32_err, s32_scale, s32_launches = ssm_model_f32(ssm_cfg)
-    print(f"whole model, float32: falcon-mamba-7b with n_layers="
-          f"{SSM_F32_LAYERS} (full width), S = {F32_PROMPT}; logits at every "
-          f"position via the scan kernel vs backend='ref': max abs err "
-          f"{s32_err} (bound {SCAN_TOL} x max(1, {s32_scale})); "
-          f"{s32_launches} scan launches", flush=True)
+    s32 = model_f32(ssm_cfg, SSM_F32_LAYERS, seed=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"whole model, float32: {s32['model']} with n_layers="
+          f"{s32['layers']} (full width), S = {F32_PROMPT}; logits at every "
+          f"position via the scan kernel vs its plain version: "
+          f"{json.dumps(s32)}", flush=True)
 
     # 11. SSM times (and, when asked, an earlier scan kernel's beside them)
     baseline = None
@@ -2117,6 +2539,53 @@ def main(argv=None) -> int:
         print(f"trace path {tag}: run {run}: {json.dumps(trace[run])}",
               flush=True)
 
+    # 13. the forecast plug-in on the decision path at 16,386 workers
+    pred = predictive_path()
+    print(f"predictive trace {tag}: {json.dumps(pred)}", flush=True)
+
+    # 14. the MoE serving path: qwen3-moe-30b-a3b whole behind serve.Engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory before qwen3-moe-30b-a3b: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated",
+          flush=True)
+    moe_launches, moe_err, moe_f32, moe_serving = serving_path(QWEN3_MOE_30B)
+    print(f"MoE serving end to end {tag}: {json.dumps(moe_serving)}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15. jamba-1.5-large-398b (2 layers) and arctic-480b (1 layer) at full
+    # width; jamba's float32 logits through the kernels vs plain; then the
+    # kernels at the new shapes
+    hybrid = {}
+    for base in (JAMBA_15_LARGE, ARCTIC_480B):
+        hybrid[base.name] = hybrid_path(base)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"full width {tag}: {json.dumps(hybrid[base.name])}",
+              flush=True)
+    h32 = model_f32(JAMBA_15_LARGE, HYBRID_DEPTHS[JAMBA_15_LARGE.name],
+                    seed=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"whole model, float32: {h32['model']} with n_layers="
+          f"{h32['layers']} (full width), S = {F32_PROMPT}; logits at every "
+          f"position via the float32 flash and scan kernels vs their plain "
+          f"versions: {json.dumps(h32)}", flush=True)
+    shape_t = {}
+    for cfg_, seed in ((QWEN3_MOE_30B, 16), (JAMBA_15_LARGE, 17),
+                       (ARCTIC_480B, 18)):
+        shape = (1, PROMPT, cfg_.n_heads, cfg_.n_kv_heads,
+                 cfg_.resolved_head_dim)
+        shape_t[cfg_.name] = time_flash(torch.bfloat16, None, seed=seed,
+                                        shape=shape)
+        print(f"time {tag}: flash_attention_bf16 causal at {shape} "
+              f"({cfg_.name}): {json.dumps(shape_t[cfg_.name])}", flush=True)
+    scan_wide = time_scan(seed=19, D=2 * JAMBA_15_LARGE.d_model)
+    print(f"time {tag}: selective_scan at {tuple(scan_wide['shape'])} "
+          f"(jamba-1.5-large-398b): {json.dumps(scan_wide)}", flush=True)
+
     rows = []
     for k in KERNELS:
         name = k.name
@@ -2130,15 +2599,21 @@ def main(argv=None) -> int:
                      "device_ms": t["device_ms"], "shape": t["shape"],
                      "trace_path_launches": {
                          run: trace[run]["launches"][name]
-                         for run in ("A", "B")}})
+                         for run in ("A", "B")},
+                     "predictive_path_launches": pred["launches"][name],
+                     "moe_serving_launches": moe_launches[name]})
     # the bf16 kernel's launches are the serving run's; the float32
     # kernel's are phase 7's (the float32 period: no bf16 path runs it)
+    hybrid_flash_err = [f["max_abs_err"] for h in hybrid.values()
+                        for f in h["flash_vs_plain"].values()]
     for k, dtype, n, err in (
             (fa.FLASH_ATTENTION_BF16_KERNEL, torch.bfloat16,
              serve_launches["flash_attention_bf16"],
-             max(flash_err[torch.bfloat16], *main_err.values())),
+             max(flash_err[torch.bfloat16], *main_err.values(),
+                 *moe_err.values(), *hybrid_flash_err)),
             (fa.FLASH_ATTENTION_KERNEL, torch.float32, f32_launches,
-             max(flash_err[torch.float32], *main_f32.values()))):
+             max(flash_err[torch.float32], *main_f32.values(),
+                 *moe_f32.values()))):
         t = flash_t[(dtype, "causal")]
         rows.append({"name": k.name, "route": "cuda",
                      "source": str(k.source.relative_to(ROOT)),
@@ -2154,18 +2629,39 @@ def main(argv=None) -> int:
                          key: flash_t[(dtype, "window1024")][key]
                          for key in ("ms", "device_ms", "plain_ms",
                                      "library_ms", "library_device_ms",
-                                     "bound_ms", "bound_by")}})
+                                     "bound_ms", "bound_by")},
+                     "moe_serving_launches": moe_launches[k.name],
+                     "full_width_launches": {
+                         name: h["launches"][k.name]
+                         for name, h in hybrid.items()},
+                     "float32_full_width_launches": h32["launches"][k.name],
+                     "shapes": {name: {
+                         key: t_[key] for key in (
+                             "shape", "ms", "device_ms", "plain_ms",
+                             "library_ms", "library_device_ms", "bound_ms",
+                             "bound_by")}
+                         for name, t_ in shape_t.items()}
+                     if dtype == torch.bfloat16 else None})
     k = ms.SELECTIVE_SCAN_KERNEL
     rows.append({"name": k.name, "route": "cuda",
                  "source": str(k.source.relative_to(ROOT)),
                  "replaces": REPLACES[k.name],
                  "launches": ssm_launches[k.name],
-                 "max_abs_err": max(scan_err, scan_live_err),
+                 "max_abs_err": max(scan_err, scan_live_err, *(
+                     h["scan_vs_plain"]["max_abs_err"]
+                     for h in hybrid.values() if h["scan_vs_plain"])),
                  "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
                  "bound_ms": scan_t["bound_ms"],
                  "bound_by": scan_t["bound_by"], "library_ms": None,
                  "device_ms": scan_t["device_ms"],
-                 "shape": scan_t["shape"]})
+                 "shape": scan_t["shape"],
+                 "full_width_launches": {
+                     name: h["launches"][k.name]
+                     for name, h in hybrid.items()},
+                 "float32_full_width_launches": h32["launches"][k.name],
+                 "d16384": {key: scan_wide[key] for key in (
+                     "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                     "bound_by")}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

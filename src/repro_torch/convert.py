@@ -119,12 +119,14 @@ def lm_params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
     port's flat layer list takes group g, position p as layer
     ``g * period + p`` and the tail after them.  ``lm_head`` is present
     only without ``tie_embeddings``.  Names, shapes and the set of leaves
-    must match the port's parameters exactly, or it raises.  Each leaf takes
-    the dtype of the port's parameter of that name: the model's dtype, but
-    float32 for a mamba block's ``a_log`` and ``d_skip``, as in the
-    reference."""
+    must match the port's parameters exactly, or it raises: a layer holds
+    ``mlp``, ``moe`` or both as its ``ffn_kind`` says.  Each leaf takes the
+    dtype of the port's parameter of that name: the model's dtype, but
+    float32 for a mamba block's ``a_log`` and ``d_skip`` and a MoE
+    ``router``, as in the reference."""
     from .kernels.affinity.ops import resolve_device
-    from .models.transformer import LM, check_supported
+    from .models.model import check_supported
+    from .models.transformer import LM
 
     check_supported(cfg)
     dev = resolve_device(device)

@@ -1,7 +1,6 @@
-"""Family dispatch: one entry point per model operation.  The dense, vlm
-and ssm families run; the hybrid and moe families raise
-``NotImplementedError`` until the MoE slice, and enc-dec until its own
-slice (``ROADMAP.md``)."""
+"""Family dispatch: one entry point per model operation.  The dense, moe,
+ssm, hybrid and vlm families run; enc-dec raises ``NotImplementedError``
+until its own slice (``ROADMAP.md``)."""
 from __future__ import annotations
 
 import torch
@@ -16,7 +15,9 @@ ENCDEC_NOT_PORTED = ("the encoder-decoder family is not ported yet: it comes "
                      "models/encdec.py)")
 
 
-def _lm_only(cfg: ModelConfig) -> None:
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for the one family the port does not
+    run yet, enc-dec."""
     if cfg.family == "encdec":
         raise NotImplementedError(ENCDEC_NOT_PORTED)
 
@@ -27,7 +28,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     caller asks for ``"cpu"``) from ``generator``, which must live there
     too.  The values are the port's own; ``repro_torch.convert.
     lm_params_from_jax`` loads the reference's instead."""
-    _lm_only(cfg)
+    check_supported(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
@@ -36,16 +37,16 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
 
 
 def model_forward(cfg: ModelConfig, model, batch, *, impl=None):
-    _lm_only(cfg)
+    check_supported(cfg)
     return tf.lm_forward(cfg, model, batch, impl=impl)
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device="cuda"):
-    _lm_only(cfg)
+    check_supported(cfg)
     return tf.init_cache(cfg, B, max_len, device=resolve_device(device))
 
 
 def model_decode_step(cfg: ModelConfig, model, cache, token):
-    _lm_only(cfg)
+    check_supported(cfg)
     return tf.lm_decode_step(cfg, model, cache, token)
 

@@ -1,14 +1,14 @@
-"""Decoder-only LM for the dense, vlm and ssm families: the layer stack,
-prefill (``lm_forward``), logits, and decode against linear, ring and
-buffered attention caches and mamba conv / state caches.
+"""Decoder-only LM for the dense, moe, ssm, hybrid and vlm families: the
+layer stack, prefill (``lm_forward``), logits, and decode against linear,
+ring and buffered attention caches and mamba conv / state caches.
 
 The reference stacks layers ``[G, ...]`` per period position and scans over
 groups; the port keeps one flat :class:`torch.nn.ModuleList` in execution
 order instead: group g, period position p is layer ``g * period + p``, and
 the ``n_tail`` tail layers follow with ``layer_kind(p)`` of their own index
-p.  So layer i always has period position ``i % period``.  MoE FFNs (and
-with them the hybrid and moe families) belong to the MoE slice and raise
-``NotImplementedError``.
+p.  So layer i always has period position ``i % period``, which decides its
+mixer (``layer_kind``: attention, local attention or mamba) and its FFN
+(``ffn_kind``: dense, MoE, or MoE with arctic's dense residual).
 ``remat`` is a training knob; the serving path runs under
 ``torch.no_grad()`` and ignores it.
 """
@@ -27,11 +27,8 @@ from .attention import (attention, cache_insert, decode_attention,
                         ring_slot_positions)
 from .layers import (MLP, Embed, Norm, apply_rope, dtype_of, normal_param,
                      const_param)
+from .moe import MoE, moe_ffn
 from .ssm import Mamba, init_mamba_state, mamba_decode_step, mamba_forward
-
-NOT_PORTED = ("{what} is not ported yet: it comes with the MoE slice "
-              "(ROADMAP.md, Queue 1: models/moe.py, the jamba hybrid and the "
-              "MoE configs)")
 
 
 # --------------------------------------------------------------------------- #
@@ -71,15 +68,17 @@ class Attention(nn.Module):
 
 
 class Layer(nn.Module):
-    """One pre-norm block: ``ln1``, the mixer, ``ln2``, dense FFN
-    (``mlp``).  ``kind`` is ``attn`` (global) or ``local`` (sliding window),
-    with attention (``attn``) as the mixer, or ``mamba``, with the SSM block
-    (``ssm``)."""
+    """One pre-norm block: ``ln1``, the mixer, ``ln2``, the FFN.  ``kind``
+    is ``attn`` (global) or ``local`` (sliding window), with attention
+    (``attn``) as the mixer, or ``mamba``, with the SSM block (``ssm``).
+    ``ffn_kind`` is ``dense`` (``mlp``), ``moe`` (``moe``) or ``moe+dense``
+    (both, summed), as the reference's ``_init_layer`` lays them out."""
 
     def __init__(self, cfg: ModelConfig, p: int, *, generator, device):
         super().__init__()
         dt = dtype_of(cfg.dtype)
         self.kind = cfg.layer_kind(p)
+        self.ffn_kind = cfg.ffn_kind(p)
         self.ln1 = Norm(cfg.d_model, cfg.norm_type, cfg.norm_eps, dt, device)
         self.ln2 = Norm(cfg.d_model, cfg.norm_type, cfg.norm_eps, dt, device)
         if self.kind == "mamba":
@@ -88,8 +87,12 @@ class Layer(nn.Module):
         else:
             self.attn = Attention(cfg, dt, generator=generator,
                                   device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, dt,
-                       generator=generator, device=device)
+        if self.ffn_kind in ("dense", "moe+dense"):
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, dt,
+                           generator=generator, device=device)
+        if self.ffn_kind in ("moe", "moe+dense"):
+            self.moe = MoE(cfg.d_model, cfg.moe, dt, cfg.mlp_type,
+                           generator=generator, device=device)
 
 
 class LM(nn.Module):
@@ -115,17 +118,7 @@ class LM(nn.Module):
                 "w2": normal_param((cfg.d_model, cfg.d_model), dt, **g)})
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    MoE FFNs (and with them the hybrid and moe families)."""
-    for p in range(cfg.period):
-        if cfg.ffn_kind(p) != "dense":
-            raise NotImplementedError(NOT_PORTED.format(
-                what=f"{cfg.name}'s MoE FFNs"))
-
-
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> LM:
-    check_supported(cfg)
     return LM(cfg, generator=generator, device=device)
 
 
@@ -140,12 +133,21 @@ def _rope_theta(cfg: ModelConfig, kind: str) -> float:
     return cfg.rope_theta
 
 
+def _apply_ffn(cfg: ModelConfig, layer: Layer, h):
+    if layer.ffn_kind == "dense":
+        return layer.mlp(h)
+    out = moe_ffn(layer.moe, h, cfg.moe, cfg.mlp_type)
+    if layer.ffn_kind == "moe+dense":
+        out = out + layer.mlp(h)
+    return out
+
+
 def _apply_layer(cfg: ModelConfig, layer: Layer, x, positions, impl):
     h = layer.ln1(x)
     if layer.kind == "mamba":
         x = x + mamba_forward(layer.ssm, h, cfg.ssm,
                               scan_dtype=cfg.ssm_scan_dtype)
-        return x + layer.mlp(layer.ln2(x))
+        return x + _apply_ffn(cfg, layer, layer.ln2(x))
     B, S, _ = h.shape
     q, k, v = layer.attn.qkv(h)
     theta = _rope_theta(cfg, layer.kind)
@@ -155,7 +157,7 @@ def _apply_layer(cfg: ModelConfig, layer: Layer, x, positions, impl):
     y = attention(q, k, v, positions, positions, causal=True, window=window,
                   impl=impl, chunk=cfg.attn_chunk, q_block=cfg.attn_q_block)
     x = x + y.reshape(B, S, -1) @ layer.attn.wo
-    return x + layer.mlp(layer.ln2(x))
+    return x + _apply_ffn(cfg, layer, layer.ln2(x))
 
 
 def _input_embeds(cfg: ModelConfig, model: LM, batch):
@@ -200,7 +202,6 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device="cuda"):
     ``conv`` [B, di, kw-1] in the model's dtype and ``h`` [B, di, N] in
     float32 on mamba layers), the next position ``pos`` and, with
     ``decode_buffer``, ``cache_len``."""
-    check_supported(cfg)
     dt = dtype_of(cfg.dtype)
     hd = cfg.resolved_head_dim
     shape = lambda L: (B, L, cfg.n_kv_heads, hd)  # noqa: E731
@@ -234,7 +235,7 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, lc, x, pos: int,
         y, (lc["conv"], lc["h"]) = mamba_decode_step(
             layer.ssm, h, (lc["conv"], lc["h"]), cfg.ssm)
         x = x + y
-        return x + layer.mlp(layer.ln2(x))
+        return x + _apply_ffn(cfg, layer, layer.ln2(x))
     B = x.shape[0]
     q, k, v = layer.attn.qkv(h)
     theta = _rope_theta(cfg, layer.kind)
@@ -262,7 +263,7 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, lc, x, pos: int,
         kc, vc = cache_insert(lc["k"], lc["v"], k, v, pos)
         y = decode_attention(q, kc, vc, pos, slot_pos=None)
     x = x + y.reshape(B, 1, -1) @ layer.attn.wo
-    return x + layer.mlp(layer.ln2(x))
+    return x + _apply_ffn(cfg, layer, layer.ln2(x))
 
 
 def lm_decode_step(cfg: ModelConfig, model: LM, cache, token):

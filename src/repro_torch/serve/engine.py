@@ -28,8 +28,7 @@ publishes ``warm:<function>`` residency tags into ``conf`` whenever a
 Listing-1 policies can steer toward warm cells — and (c) passes the pool's
 warmth rank to the scheduler as a tie-breaker among otherwise-valid cells.
 
-Forecasting (optional; the forecast module is not ported yet, so the
-estimator is any object with ``observe`` and ``observe_service``): with one
+Forecasting (optional): with an :class:`repro_torch.forecast.ArrivalForecast`
 attached the engine reports every request-class arrival and its service time
 to the estimator, and ``forecast_stats()`` exposes the per-class forecast
 state (rates, expected arrivals, learned service times and DAG successors)

@@ -4,9 +4,10 @@ through the kernels against the same path through the plain versions on
 the CPU, the flash-attention kernels against their plain version (float32
 within ``tests/test_kernels.py``'s 2e-5, bf16 within the bound of the
 kernel's roundings, ``chip_smoke.FLASH_TOL``), and the selective-scan
-kernel against its plain version within that file's 1e-4, and a short
-trace through ``TraceWorkload`` on ``ClusterSim`` against the same trace on
-the plain versions.  Every test here needs an NVIDIA GPU and skips without
+kernel against its plain version within that file's 1e-4, short traces
+through ``TraceWorkload`` on ``ClusterSim`` (the trace path and the
+predictive trace) against the same traces on the plain versions, and a
+MoE layer on the card against the CPU.  Every test here needs an NVIDIA GPU and skips without
 one; the module imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch built for CUDA."""
 import pytest
@@ -132,6 +133,35 @@ def test_trace_path_on_the_card_equals_the_plain_versions(card):
                                 per_tick=128)
     assert out["A"]["launches"]["affinity_valid"] == out["A"]["decisions"]
     assert out["B"]["launches"] == {"affinity_valid": 0, "bulk_decide": 4}
+
+
+def test_predictive_path_on_the_card_equals_the_plain_versions(card):
+    """``chip_smoke``'s predictive trace at 48 testbed copies (288
+    workers): records, rng draws, pool metrics and planner stats equal to
+    the ``device="cpu"`` run's and the float64 twin's (``predictive_path``
+    raises otherwise), prewarms issued on Listing-1 valid workers, one
+    ``affinity_valid`` launch a decision."""
+    out = chip_smoke.predictive_path(48)
+    assert out["launches"]["affinity_valid"] == out["decisions"]
+    assert out["planner"]["prewarms"] > 0
+
+
+@pytest.mark.parametrize("mlp_type", ["swiglu", "gelu"])
+def test_moe_ffn_on_the_card_equals_the_cpu(card, mlp_type):
+    """One float32 MoE layer on the card against the same layer on the
+    CPU, within the 1e-5 the CPU tests hold it to against the reference,
+    with groups that overflow their capacity."""
+    from repro_torch.configs import MoESpec
+    from repro_torch.models.moe import MoE, moe_ffn
+
+    spec = MoESpec(n_experts=8, top_k=2, d_ff_expert=32, group_size=64,
+                   capacity_factor=0.5)
+    gen = torch.Generator().manual_seed(0)
+    moe = MoE(64, spec, torch.float32, mlp_type, generator=gen, device="cpu")
+    x = torch.randn((2, 100, 64), generator=gen)
+    want = moe_ffn(moe, x, spec, mlp_type)
+    got = moe_ffn(moe.cuda(), x.cuda(), spec, mlp_type)
+    assert float((got.cpu() - want).abs().max()) < 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -55,6 +55,10 @@ def err(jax_out, torch_out) -> float:
     # causal + window at ragged Sq != Skv: the kernel's key-tile bounds
     (1, 300, 200, 8, 4, 256, True, 128, "f32", 2e-5),
     (1, 200, 300, 4, 2, 64, True, 50, "f32", 2e-5),
+    # the moe and hybrid families' GQA ratios: 8 at head_dim 64
+    # (qwen3-moe-30b-a3b's 32:4) and 7 at head_dim 128 (arctic-480b's 56:8)
+    (1, 200, 200, 32, 4, 64, True, None, "f32", 2e-5),
+    (1, 130, 130, 56, 8, 128, True, None, "f32", 2e-5),
 ])
 def test_flash_attention_equals_the_reference(B, Sq, Skv, H, K, hd, causal,
                                               window, dt, tol):

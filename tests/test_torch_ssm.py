@@ -9,8 +9,7 @@ reference's chunked scan (``scan_chunk = 16``) and its unchunked one
 (``scan_chunk = 0``).  The port runs the scan kernel's plain version here.
 Everything is held to 1e-4 absolute: the same float32 maths, summed in
 another order.  Then the conversion of a bfloat16 model, which keeps the
-reference's float32 ``a_log`` and ``d_skip``, and the configs the port
-still refuses (MoE FFNs)."""
+reference's float32 ``a_log`` and ``d_skip``."""
 import dataclasses
 import functools
 
@@ -32,7 +31,6 @@ from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.models import init_cache, init_model  # noqa: E402
 from repro_torch.models import ssm as port_ssm  # noqa: E402
-from repro_torch.models.transformer import check_supported  # noqa: E402
 from repro_torch.train.step import (make_prefill_step,  # noqa: E402
                                     make_serve_step)
 
@@ -238,13 +236,3 @@ def test_bfloat16_conversion_keeps_a_log_and_d_skip_in_float32():
     # and the bf16 model runs: finite logits from a prefill
     _, batch_t = _prompt(tcfg, 1, 24, seed=5)
     assert torch.isfinite(make_prefill_step(tcfg)(model, batch_t)).all()
-
-
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "qwen3-moe-30b-a3b", "arctic-480b"])
-def test_moe_configs_are_still_refused(arch):
-    cfg = ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="MoE FFNs is not ported"):
-        check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
