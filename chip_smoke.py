@@ -19,7 +19,9 @@ Phases, one line each (every time beside the card's name and power limit):
    late key tile, each with a dropped key tile shown to exceed 4x that
    bound, at ragged lengths, Sq != Skv, GQA ratios 1, 2, 4 and the moe and
    hybrid families' 7 and 8, head dims 64, 128, 256, window 1 and a window
-   past the sequence, causal with a window at Sq != Skv; the selective-scan
+   past the sequence, causal with a window at Sq != Skv, and the enc-dec
+   family's ratio 1 at hd 64 (non-causal at Sq < Skv and Sq > Skv with a
+   ragged last key tile, and causal); the selective-scan
    kernel against its plain version within 1e-4 at the shapes of
    ``tests/test_kernels.py``'s sweep and around its tiling (S below and
    across 64-step chunks, D off its 32-channel tile and off a multiple of
@@ -112,12 +114,12 @@ Phases, one line each (every time beside the card's name and power limit):
    ``ArrivalForecast`` seeded from the script's affinity terms and fed by
    the driver, a ``ForecastPlanner`` epoching every simulated second with
    migration cost 0.25 s) on the ``chained`` scenario at 2 roots/s a
-   replica, over a 1.25 s window of roots, stopped after the third planning
-   epoch, decided one arrival at a time through ``affinity_valid``: its
-   records, rng tail, pool metrics and planner stats must equal the
-   ``device="cpu"`` run's and the float64 twin's, some epoch must prewarm,
-   every prewarm and migration target must pass the port's scalar
-   Listing-1 ``valid`` on the state it was planned on, and
+   replica, over a 1.25 s window of roots, stopped after the second
+   planning epoch, decided one arrival at a time through
+   ``affinity_valid``: its records, rng tail, pool metrics and planner
+   stats must equal the ``device="cpu"`` run's and the float64 twin's, some
+   epoch must prewarm, every prewarm and migration target must pass the
+   port's scalar Listing-1 ``valid`` on the state it was planned on, and
    ``affinity_valid`` must launch once a decision; the same trace under the
    ``affinity`` policy for its cold-start rate; the planner's host ms per
    epoch;
@@ -144,6 +146,28 @@ Phases, one line each (every time beside the card's name and power limit):
    against their plain versions on the card within 1e-4 max(1, max
    |logit|); then bf16 flash at the three models' shapes and the scan at D
    = 16384 timed as in phases 8 and 11;
+16. enc-dec and vlm serving — seamless-m4t-large-v2 whole (24 encoder and
+   24 decoder layers, 16:16 heads of 64, bf16, 1.635 B parameters) behind
+   the same engine, deployment, sessions, decodes and cell failure as
+   phase 6: a prefill encodes 2048 seeded frames (the stub audio
+   frontend) once, runs the decoder over 2048 target tokens on that
+   encoding and builds the decode cache's cross K / V from it
+   (``EncDecRunner``); phase 6's checks with 72 bf16 flash launches a
+   prefill (24 encoder, 24 decoder self, 24 cross), and flash held to the
+   plain version on the first call of each of the three; bf16 flash timed
+   at (1, 2048, 16, 16, 64) non-causal and causal; two layers a side in
+   float32 at S = 2048 through ``model_f32``.  Then internvl2-76b at full
+   width with 4 of its 80 layers (11.2 GB) behind the same engine: 256
+   seeded patch features and 3840 tokens a prefill, 4 bf16 flash launches
+   a prefill at (1, 4096, 64, 8, 128);
+17. training — under ``torch.use_deterministic_algorithms(True)``, no
+   kernel launched: gemma3-4b whole in bf16, 4 ``make_train_step`` steps
+   at B = 1, S = 1024 with AdamW's defaults on ``make_batch``'s batches
+   (finite losses and grad norms, every parameter moved), the step split
+   into forward, backward and optimizer, its idle share and its bound; a
+   6-layer full-width crash-restart through ``CheckpointManager``, losses
+   and parameters bit-identical to the straight run; reduced gemma3-4b in
+   float32, one step and its gradients on the card against the CPU;
 
 then a ``{"kernels": [...]}`` line, the card line, and the result line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -152,17 +176,21 @@ exits non-zero and prints no result line.
 from __future__ import annotations
 
 import collections
+import copy
 import ctypes
 import dataclasses
 import functools
 import gc
 import json
 import math
+import os
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -178,7 +206,8 @@ from repro_torch.cluster.simulator import (ClusterSim,  # noqa: E402
 from repro_torch.cluster.topology import (WorkerSpec,  # noqa: E402
                                           paper_testbed, two_pod_cells)
 from repro_torch.configs.registry import (  # noqa: E402
-    ARCTIC_480B, FALCON_MAMBA_7B, GEMMA3_4B, JAMBA_15_LARGE, QWEN3_MOE_30B)
+    ARCTIC_480B, FALCON_MAMBA_7B, GEMMA3_4B, INTERNVL2_76B, JAMBA_15_LARGE,
+    QWEN3_MOE_30B, SEAMLESS_M4T_LARGE_V2)
 from repro_torch.core.ast import (AAppScript, Affinity, Block,  # noqa: E402
                                   Invalidate, TagPolicy)
 from repro_torch.core.scheduler import candidate_blocks, valid  # noqa: E402
@@ -196,8 +225,12 @@ from repro_torch.kernels.affinity.ref import affinity_valid_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
+from repro_torch.launch.train import (load_train_state,  # noqa: E402
+                                      train_state)
 from repro_torch.models import (init_cache, init_model,  # noqa: E402
-                                model_decode_step, model_forward)
+                                model_decode_step, model_forward,
+                                model_loss)
+from repro_torch.models import encdec as ed  # noqa: E402
 from repro_torch.models.moe import moe_ffn  # noqa: E402
 from repro_torch.models.transformer import lm_logits  # noqa: E402
 from repro_torch.obs import Obs, validate_chrome_trace  # noqa: E402
@@ -207,7 +240,11 @@ from repro_torch.resilience import (HEAL_ZONE, KILL_ZONE,  # noqa: E402
                                     ChaosHarness, Fault, Resilience,
                                     RetryPolicy)
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
-from repro_torch.train.step import make_prefill_step  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train.step import (batch_to, make_prefill_step,  # noqa: E402
+                                    make_train_step)
 from repro_torch.workload import (COMPUTE_S, FUNCTION_MIX,  # noqa: E402
                                   Arrival, ReplayConfig, RunResult,
                                   TraceWorkload, build_trace,
@@ -277,7 +314,10 @@ DEPLOY = ["pod0-cell0", "pod0-cell1", "pod1-cell0"]
 # version with the v rows of one 64-key tile zeroed must move some element,
 # in a row that sees the whole tile, by at least FLASH_DROP x its tolerance
 # (flash_bf16_check).  On the whole inputs the tile dropped is the first,
-# or under a window the one most rows see (dropped_tile).  A row that sees
+# or under a window the one most rows see (dropped_tile); with neither a
+# causal mask nor a window, where every row sees every key, the first
+# FLASH_DROP_SHARE of the key tiles go instead (dropped_span), so that the
+# control's margin does not shrink with the keys' count.  A row that sees
 # thousands of keys moves by one tile's share when a tile goes, while its
 # bound counts the rounding of every key, so the loss of a late tile shows
 # by only a few times the bound; a second check holds the kernel on v with
@@ -289,6 +329,7 @@ DEPLOY = ["pod0-cell0", "pod0-cell1", "pod1-cell0"]
 FLASH_TOL = {torch.float32: 2e-5}
 BF16_ROUNDING = 2.0 ** -8
 FLASH_DROP = 4.0
+FLASH_DROP_SHARE = 0.25
 FLASH_TILE = 64
 # what phase 3 prints of each bf16 check (flash_bf16_check)
 BF16_KEYS = ("tile", "max_abs_err", "err_over_tol", "drop_over_tol")
@@ -796,8 +837,11 @@ def time_affinity_baseline(base_dir: Path, cases):
 
 #: (B, Sq, Skv, H, K, hd, causal, window): ragged lengths (Sq = 1, 200,
 #: 257), Sq != Skv non-causal, GQA ratios H / K of 1, 2, 4, 7 and 8, head
-#: dims 64, 128 and 256, window 1 and a window past the sequence, and causal
-#: with a window at Sq > Skv and Sq < Skv (the kernel's key-tile bounds)
+#: dims 64, 128 and 256, window 1 and a window past the sequence, causal
+#: with a window at Sq > Skv and Sq < Skv (the kernel's key-tile bounds),
+#: and the enc-dec family's ratio 1 at hd 64: non-causal with a ragged last
+#: key tile (the encoder, and cross-attention at Sq < Skv and Sq > Skv) and
+#: causal (the decoder's self-attention)
 FLASH_CASES = [
     (1, 1, 1, 2, 1, 64, True, None),
     (2, 200, 200, 4, 2, 64, True, None),
@@ -815,6 +859,10 @@ FLASH_CASES = [
     (1, 257, 257, 32, 4, 64, True, None),
     (1, 300, 300, 64, 8, 128, True, None),
     (1, 257, 257, 56, 8, 128, True, None),
+    # seamless-m4t-large-v2: 16:16 heads of 64
+    (1, 257, 300, 16, 16, 64, False, None),
+    (1, 257, 257, 16, 16, 64, True, None),
+    (1, 385, 200, 16, 16, 64, False, None),
 ]
 
 
@@ -839,11 +887,11 @@ def flash_bf16_bound(q, k, v, causal, window):
 
 
 def tile_rows_seen(Sq: int, Skv: int, causal: bool, window, tile: int,
-                   every: bool = True) -> torch.Tensor:
-    """[Sq] bool: the query rows that see every key of 64-key tile ``tile``
-    (``every``), or some key of it."""
+                   every: bool = True, span: int = 1) -> torch.Tensor:
+    """[Sq] bool: the query rows that see every key of the ``span`` 64-key
+    tiles from ``tile`` (``every``), or some key of them."""
     qi = torch.arange(Sq)
-    a, b = tile * FLASH_TILE, min((tile + 1) * FLASH_TILE, Skv) - 1
+    a, b = tile * FLASH_TILE, min((tile + span) * FLASH_TILE, Skv) - 1
     lo, hi = (a, b) if every else (b, a)
     rows = torch.ones(Sq, dtype=torch.bool)
     if causal:
@@ -865,6 +913,15 @@ def dropped_tile(Sq: int, Skv: int, causal: bool, window) -> int:
     return seen.index(max(seen))
 
 
+def dropped_span(Skv: int, causal: bool, window) -> int:
+    """How many 64-key tiles, from :func:`dropped_tile`, the control on the
+    whole inputs drops: one, or with neither a causal mask nor a window the
+    first FLASH_DROP_SHARE of them."""
+    if causal or window is not None:
+        return 1
+    return max(1, math.ceil(FLASH_DROP_SHARE * -(-Skv // FLASH_TILE)))
+
+
 def late_tile(Sq: int, Skv: int, causal: bool) -> int:
     """A 64-key tile that only late query rows see: under a causal mask the
     one before the last row's diagonal tile (or the first, when that is the
@@ -873,32 +930,34 @@ def late_tile(Sq: int, Skv: int, causal: bool) -> int:
     return max(last // FLASH_TILE - 1, 0) if causal else last // FLASH_TILE
 
 
-def tile_rows(v: torch.Tensor, tile: int, keep: bool) -> torch.Tensor:
-    """``v`` with the key rows of 64-key tile ``tile`` zeroed, or with every
-    other key row zeroed (``keep``)."""
-    a = tile * FLASH_TILE
+def tile_rows(v: torch.Tensor, tile: int, keep: bool,
+              span: int = 1) -> torch.Tensor:
+    """``v`` with the key rows of the ``span`` 64-key tiles from ``tile``
+    zeroed, or with every other key row zeroed (``keep``)."""
+    a, b = tile * FLASH_TILE, (tile + span) * FLASH_TILE
     if keep:
         out = torch.zeros_like(v)
-        out[:, a:a + FLASH_TILE] = v[:, a:a + FLASH_TILE]
+        out[:, a:b] = v[:, a:b]
         return out
     out = v.clone()
-    out[:, a:a + FLASH_TILE] = 0
+    out[:, a:b] = 0
     return out
 
 
-def flash_bf16_check(got, q, k, v, causal, window, tile: int):
+def flash_bf16_check(got, q, k, v, causal, window, tile: int,
+                     span: int = 1):
     """A bf16 output ``got`` for q, k, v (the kernel's) against the plain
     version on them widened to float32 (:func:`flash_bf16_bound`), and the
-    control: the plain version with the v rows of 64-key tile ``tile``
-    zeroed.  Raises unless every element is within its tolerance and the
-    control moves some element of a row that sees the whole tile (else of
-    one that sees some of it) by at least FLASH_DROP x its tolerance (an
-    element whose tolerance is 0, a row that sees no key of a v that is
-    zero there, must match exactly).  Returns the key tile, the largest
-    difference, the largest difference over its element's tolerance, the
-    control's largest difference over tolerance, and the medians of the
-    tolerance and of |output| over the elements whose tolerance is not
-    0."""
+    control: the plain version with the v rows of the ``span`` 64-key tiles
+    from ``tile`` zeroed.  Raises unless every element is within its
+    tolerance and the control moves some element of a row that sees all of
+    them (else of one that sees some) by at least FLASH_DROP x its
+    tolerance (an element whose tolerance is 0, a row that sees no key of a
+    v that is zero there, must match exactly).  Returns the key tiles, the
+    largest difference, the largest difference over its element's
+    tolerance, the control's largest difference over tolerance, and the
+    medians of the tolerance and of |output| over the elements whose
+    tolerance is not 0."""
     want, tol = flash_bf16_bound(q, k, v, causal, window)
     if got.dtype != q.dtype or got.shape != want.shape:
         raise AssertionError("flash_attention returned another dtype or "
@@ -910,25 +969,27 @@ def flash_bf16_check(got, q, k, v, causal, window, tile: int):
     diff = (got.float() - want).abs()
     err = over(diff)
     where = f"at q {tuple(q.shape)}, k {tuple(k.shape)}, causal={causal}, " \
-            f"window={window}, key tile {tile}"
+            f"window={window}, key tiles {tile}-{tile + span - 1}"
     if not bool((diff <= tol).all()):
         raise AssertionError(
             f"bf16 flash_attention differs from its plain version by "
             f"{err} x the tolerance of an element "
             f"(max abs err {float(diff.max())}) {where}")
     dropped = fa.flash_attention_ref(q.float(), k.float(),
-                                     tile_rows(v.float(), tile, keep=False),
+                                     tile_rows(v.float(), tile, keep=False,
+                                               span=span),
                                      causal=causal, window=window)
     Sq, Skv = q.shape[1], k.shape[1]
-    rows = tile_rows_seen(Sq, Skv, causal, window, tile)
+    rows = tile_rows_seen(Sq, Skv, causal, window, tile, span=span)
     if not rows.any():
-        rows = tile_rows_seen(Sq, Skv, causal, window, tile, every=False)
+        rows = tile_rows_seen(Sq, Skv, causal, window, tile, every=False,
+                              span=span)
     drop = over((dropped - want).abs(), rows.to(want.device))
     if not drop >= FLASH_DROP:
         raise AssertionError(
-            f"dropping a key tile moves the plain version by at most {drop} "
+            f"dropping key tiles moves the plain version by at most {drop} "
             f"x the bf16 tolerance, under {FLASH_DROP}, {where}")
-    return {"tile": tile, "max_abs_err": float(diff.max()),
+    return {"tile": tile, "span": span, "max_abs_err": float(diff.max()),
             "err_over_tol": err, "drop_over_tol": drop,
             "median_tol": float(tol[tol > 0].median()),
             "median_abs_output": float(want.abs()[tol > 0].median())}
@@ -938,14 +999,15 @@ def compare_flash(q, k, v, causal, window):
     """The flash kernel against its plain version on the same card inputs;
     raises past the tolerance.  float32: returns the largest difference.
     bf16: :func:`flash_bf16_check` on the whole inputs (the control drops
-    :func:`dropped_tile`) and on v restricted to :func:`late_tile`; returns
+    :func:`dropped_tile`'s :func:`dropped_span` tiles) and on v restricted
+    to :func:`late_tile`; returns
     the largest difference of the two and both checks' numbers."""
     if q.dtype == torch.bfloat16:
         Sq, Skv = q.shape[1], k.shape[1]
         kw = dict(causal=causal, window=window)
         whole = flash_bf16_check(fa.flash_attention(q, k, v, **kw), q, k, v,
                                  tile=dropped_tile(Sq, Skv, causal, window),
-                                 **kw)
+                                 span=dropped_span(Skv, causal, window), **kw)
         t = late_tile(Sq, Skv, causal)
         v = tile_rows(v, t, keep=True)
         late = flash_bf16_check(fa.flash_attention(q, k, v, **kw), q, k, v,
@@ -969,18 +1031,41 @@ def compare_flash(q, k, v, causal, window):
 
 def session_prompt(session: str, vocab: int) -> torch.Tensor:
     """A seeded prompt of PROMPT token ids for one session (the same for
-    either model of the serving runs)."""
+    every model of the serving runs)."""
     g = torch.Generator(device="cuda").manual_seed(100 + int(session[1:]))
     return torch.randint(0, vocab, (1, PROMPT), generator=g, device="cuda")
+
+
+def session_batch(cfg, session: str) -> dict:
+    """A session's prefill batch for ``cfg``, PROMPT positions in all: the
+    prompt's tokens; for the vlm family, n_patches seeded patch features
+    [1, n_patches, frontend_dim] (float32, the stub vision frontend)
+    followed by PROMPT - n_patches tokens; for the enc-dec family, seeded
+    frames [1, PROMPT // 2, frontend_dim] (float32, the stub audio
+    frontend) and PROMPT // 2 target tokens, as ``data.pipeline.make_batch``
+    splits a sequence (S_src = S_tgt)."""
+    tokens = session_prompt(session, cfg.vocab)
+    g = torch.Generator(device="cuda").manual_seed(200 + int(session[1:]))
+    if cfg.family == "encdec":
+        half = PROMPT // 2
+        return {"frames": torch.randn((1, half, cfg.frontend_dim),
+                                      generator=g, device="cuda"),
+                "tokens": tokens[:, :half]}
+    if cfg.frontend == "vision":
+        return {"patches": torch.randn((1, cfg.n_patches, cfg.frontend_dim),
+                                       generator=g, device="cuda"),
+                "tokens": tokens[:, :PROMPT - cfg.n_patches]}
+    return {"tokens": tokens}
 
 
 class ServeRunner:
     """The runner ``launch/serve.py`` gives the engine, on the full model: a
     prefill runs the prefill step (attention through the flash kernel, mamba
-    layers through the scan kernel) on the session's prompt and makes an
-    empty cache (the JAX package has no prefill-into-cache for LMs); a
-    decode runs ``model_decode_step`` on the session's last token.  It keeps
-    each request's host seconds and whether every logit was finite."""
+    layers through the scan kernel) on the session's batch
+    (:func:`session_batch`) and makes an empty cache (the JAX package has no
+    prefill-into-cache for LMs); a decode runs ``model_decode_step`` on the
+    session's last token.  It keeps each request's host seconds and whether
+    every logit was finite."""
 
     def __init__(self, cfg, model):
         self.cfg, self.model = cfg, model
@@ -989,16 +1074,21 @@ class ServeRunner:
         self.prefill_s, self.decode_s = [], []
         self.finite = True
 
+    def start(self, batch):
+        """One prefill: (last-position logits [1, vocab], the decode
+        cache)."""
+        return self.prefill(self.model, batch), None
+
     def __call__(self, req: Request, cell: str):
         if req.kind == "prefill":
-            tokens = session_prompt(req.session, self.cfg.vocab)
+            batch = session_batch(self.cfg, req.session)
             t0 = time.perf_counter()
-            logits = self.prefill(self.model, {"tokens": tokens})
+            logits, cache = self.start(batch)
             self.finite &= bool(torch.isfinite(logits).all())
             self.prefill_s.append(time.perf_counter() - t0)
-            self.caches[(req.session, cell)] = init_cache(self.cfg, 1,
-                                                          MAX_LEN)
-            self.last[req.session] = int(tokens[0, -1])
+            self.caches[(req.session, cell)] = cache if cache is not None \
+                else init_cache(self.cfg, 1, MAX_LEN, device="cuda")
+            self.last[req.session] = int(batch["tokens"][0, -1])
             return int(logits[0].argmax())
         if req.kind == "decode":
             key = (req.session, cell)
@@ -1015,19 +1105,62 @@ class ServeRunner:
         raise ValueError(f"the serving run sends no {req.kind!r} requests")
 
 
-class FlashCapture:
-    """Stands in for the package's ``flash_attention`` during the serving
-    run and keeps the q / k / v of the first global (no window) and the
-    first local (windowed) call; every call goes on to the kernel."""
+class EncDecRunner(ServeRunner):
+    """:class:`ServeRunner` for the enc-dec family: a prefill encodes the
+    session's frames once, runs the decoder pass over its target tokens on
+    that encoding (``models.encdec.decode_hidden``) for the last position's
+    logits, and builds the decode cache from the same encoding
+    (``encdec_prefill_cache``: every layer's cross K / V, an empty self
+    cache of MAX_LEN slots)."""
 
-    def __init__(self):
+    @torch.no_grad()
+    def start(self, batch):
+        cfg, model = self.cfg, self.model
+        enc_out = ed.encode(cfg, model, batch["frames"], impl="flash")
+        hidden = ed.decode_hidden(cfg, model, batch["tokens"], enc_out,
+                                  impl="flash")
+        logits = lm_logits(cfg, model, hidden[:, -1:])[:, 0]
+        return logits, ed.encdec_prefill_cache(cfg, model, enc_out, 1,
+                                               MAX_LEN)
+
+
+def flash_calls(cfg) -> int:
+    """Attention calls a prefill makes: one per attention layer, and for
+    the enc-dec family one per encoder layer and two per decoder layer
+    (self and cross)."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return attention_layers(cfg)
+
+
+def flash_kind(cfg, call: int, causal: bool, window) -> str:
+    """What the ``call``-th attention call of a serving run is: ``local``
+    (windowed) or ``global``; for the enc-dec family, by its place in a
+    prefill, ``encoder``, ``decoder_self`` or ``cross``."""
+    if cfg.family == "encdec":
+        i = call % flash_calls(cfg)
+        if i < cfg.enc_layers:
+            return "encoder"
+        return ("decoder_self", "cross")[(i - cfg.enc_layers) % 2]
+    return "global" if window is None else "local"
+
+
+class FlashCapture:
+    """Stands in for the package's ``flash_attention`` during a run of
+    ``cfg`` and keeps the q / k / v of the first call of each kind
+    (:func:`flash_kind`); every call goes on to the kernel."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
         self.kernel = fa.flash_attention
         self.seen = {}
+        self.calls = 0
 
     def __call__(self, q, k, v, *args, **kw):
-        kind = "global" if kw.get("window") is None else "local"
-        self.seen.setdefault(kind, (q, k, v, kw.get("causal", True),
-                                    kw.get("window")))
+        causal, window = kw.get("causal", True), kw.get("window")
+        kind = flash_kind(self.cfg, self.calls, causal, window)
+        self.calls += 1
+        self.seen.setdefault(kind, (q, k, v, causal, window))
         return self.kernel(q, k, v, *args, **kw)
 
 
@@ -1038,10 +1171,12 @@ def drive_serving(cfg, model):
     the runner, the host us of scheduling per submitted request (the
     submit's wall time less the runner's), the failed cell, the sessions
     it moved, and whether every decode ran on its session's cell."""
-    runner = ServeRunner(cfg, model)
+    runner = (EncDecRunner if cfg.family == "encdec" else ServeRunner)(
+        cfg, model)
     with warnings.catch_warnings():  # the v1 call shape, as launch/serve.py
         warnings.simplefilter("ignore", DeprecationWarning)
-        eng = Engine(two_pod_cells(), runner=runner, heartbeat_timeout=1e9)
+        eng = Engine(two_pod_cells(), runner=runner, heartbeat_timeout=1e9,
+                     device="cuda")
     eng.deploy(cfg.name, DEPLOY, weights_gb=8)
     sched_us = []
 
@@ -1134,13 +1269,14 @@ def masked_pairs(S: int, window) -> int:
     return sum(min(i + 1, window) for i in range(S))
 
 
-def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256)):
+def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256),
+               causal: bool = True):
     """The flash kernel for ``dtype`` at ``shape`` (B, S, H, K, hd;
-    gemma3-4b's serving shape unless given), causal with ``window``:
-    CUDA-event ms per call, profiler device ms, the plain version's ms,
-    ``scaled_dot_product_attention``'s CUDA-event and device ms on the same
-    inputs (causal with ``enable_gqa``; the window as an explicit mask) and
-    the bound: the
+    gemma3-4b's serving shape unless given), causal with ``window`` (or
+    not causal, with no window): CUDA-event ms per call, profiler device
+    ms, the plain version's ms, ``scaled_dot_product_attention``'s
+    CUDA-event and device ms on the same inputs (``is_causal`` with
+    ``enable_gqa``; the window as an explicit mask) and the bound: the
     larger of every input read once and the output written once over HBM,
     and the mask's useful multiply-adds (q k^T and p v, 4 hd flops per
     admitted pair and head) at the peak rate for the type (dense bf16 on the
@@ -1150,14 +1286,14 @@ def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256)):
 
     B, S, H, K, hd = shape
     q, k, v = flash_inputs(B, S, S, H, K, hd, dtype, seed)
-    kern = lambda: fa.flash_attention(q, k, v, causal=True,  # noqa: E731
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
                                       window=window)
     plain = lambda: fa.flash_attention_ref(  # noqa: E731
-        q, k, v, causal=True, window=window)
+        q, k, v, causal=causal, window=window)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window is None:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     else:
         i = torch.arange(S, device="cuda")
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
@@ -1165,11 +1301,11 @@ def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256)):
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
     nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() +
                                  q.numel())
-    flops = 4 * hd * H * masked_pairs(S, window)
+    flops = 4 * hd * H * (masked_pairs(S, window) if causal else S * S)
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return {"shape": [B, S, H, K, hd], "dtype": str(dtype)[6:],
-            "window": window,
+            "causal": causal, "window": window,
             "ms": cuda_ms(kern, iters=50, warmup=5),
             "device_ms": device_ms(kern, iters=20),
             "plain_ms": cuda_ms(plain, iters=10, warmup=2),
@@ -1181,12 +1317,15 @@ def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256)):
 
 
 def full_width(base, n_layers: int, dtype: str = "bfloat16", seed: int = 0):
-    """``base`` at its published widths with ``n_layers`` layers in
-    ``dtype``, drawn on the card from a generator seeded with ``seed``;
-    returns the config, the model and the seconds the draw took."""
-    cfg = dataclasses.replace(base, n_layers=n_layers, dtype=dtype)
+    """``base`` at its published widths with ``n_layers`` layers (an
+    enc-dec model: that many on each side) in ``dtype``, drawn on the card
+    from a generator seeded with ``seed``; returns the config, the model
+    and the seconds the draw took."""
+    cfg = dataclasses.replace(base, n_layers=n_layers, dtype=dtype,
+                              enc_layers=n_layers if base.enc_layers else 0)
     t0 = time.perf_counter()
-    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
     torch.cuda.synchronize()
     return cfg, model, time.perf_counter() - t0
 
@@ -1224,14 +1363,15 @@ def serve_whole(cfg, package, name: str, capture):
     if launches["affinity_valid"] == 0:
         raise AssertionError(f"serving {cfg.name}: no placement reached "
                              f"affinity_valid ({launches})")
-    print(f"serving path: {cfg.name} whole ({cfg.n_layers} layers, "
+    depth = f"{cfg.enc_layers} encoder + " if cfg.enc_layers else ""
+    print(f"serving path: {cfg.name} ({depth}{cfg.n_layers} layers, "
           f"{n_params / 1e9:.3f} B parameters, bf16, drawn on the card in "
           f"{init_s:.2f} s) behind serve.Engine on {len(two_pod_cells())} "
           f"cells; {SESSIONS} prefills of {PROMPT} tokens, {DECODES} decodes"
           f", cell {victim} failed before decode {FAIL_AT} (re-prefilled "
           f"{moved}); {len(eng.completions)} completions ok, decodes on "
           f"their session's cell, logits finite; launches {launches} "
-          f"({n_prefills} prefills x {cfg.n_layers})", flush=True)
+          f"({n_prefills} prefills)", flush=True)
     return model, eng, runner, sched_us, launches
 
 
@@ -1243,30 +1383,38 @@ def attention_layers(cfg) -> int:
 
 
 def serving_path(cfg):
-    """Phases 6 and 14: ``cfg`` whole behind ``serve.Engine``
+    """Phases 6, 14 and 16: ``cfg`` behind ``serve.Engine``
     (:func:`serve_whole`), the bf16 flash counter checked at one launch per
-    attention layer and prefill and the float32 flash and scan counters at
-    none, and both flash kernels held to the plain version on the q / k / v
-    of the first layer of each attention kind (global, and local where the
-    model has windowed layers) the run captured (bf16 as captured, and the
-    float32 kernel on them widened).  With MoE FFNs, one MoE layer alone at
-    the prefill's and the decode's shapes (:func:`time_moe`).  Returns the
-    launches, those comparisons' errors and the run's end-to-end
-    numbers."""
-    capture = FlashCapture()
+    attention call of a prefill (:func:`flash_calls`) and the float32 flash
+    and scan counters at none, and both flash kernels held to the plain
+    version on the q / k / v of the first call of each attention kind
+    (global, and local where the model has windowed layers; encoder,
+    decoder self and cross for the enc-dec family) the run captured (bf16
+    as captured, and the float32 kernel on them widened).  With MoE FFNs,
+    one MoE layer alone at the prefill's and the decode's shapes
+    (:func:`time_moe`).  Returns the launches, those comparisons' errors
+    and the run's end-to-end numbers."""
+    capture = FlashCapture(cfg)
     model, eng, runner, sched_us, serve_launches = serve_whole(
         cfg, fa, "flash_attention", capture)
     n_prefills = len(runner.prefill_s)
-    n_attn = attention_layers(cfg)
+    n_attn = flash_calls(cfg)
     if serve_launches["flash_attention_bf16"] != n_attn * n_prefills \
             or serve_launches["flash_attention"] != 0 \
             or serve_launches["selective_scan"] != 0:
         raise AssertionError(f"serving path launches {serve_launches} for "
                              f"{n_prefills} prefills of {n_attn} attention "
-                             "layers")
+                             "calls")
     kinds = {"local" if cfg.layer_kind(i % cfg.period) == "local"
              else "global" for i in range(cfg.n_layers)
              if cfg.layer_kind(i % cfg.period) != "mamba"}
+    if cfg.family == "encdec":
+        kinds = {"encoder", "decoder_self", "cross"}
+        if {k: c for k, (*_, c, _) in capture.seen.items()} != {
+                "encoder": False, "decoder_self": True, "cross": False}:
+            raise AssertionError("enc-dec serving: the captured calls' "
+                                 "causal flags are not the encoder's, the "
+                                 "decoder's and the cross-attention's")
     if set(capture.seen) != kinds:
         raise AssertionError(f"serving path captured the attention kinds "
                              f"{sorted(capture.seen)}, where {cfg.name}'s "
@@ -1292,7 +1440,7 @@ def serving_path(cfg):
                               "flash_fwd_bf16_sm90", "flash")
     serving["flash_vs_plain_main_path"] = {
         "bf16": main, "float32_err": main_f32}
-    moe = next((layer.moe for layer in model.layers
+    moe = next((layer.moe for layer in getattr(model, "layers", ())
                 if hasattr(layer, "moe")), None)
     if moe is not None:
         serving["moe_ffn_layer"] = time_moe(cfg, moe, seed=15)
@@ -1348,10 +1496,11 @@ def serving_numbers(cfg, model, runner, sched_us, marker: str, label: str):
     prefill's and one decode step's time goes on the card
     (:func:`device_breakdown`, the port's kernel picked out by
     ``marker``)."""
-    tokens = session_prompt("s0", cfg.vocab)
-    prefill = make_prefill_step(cfg, impl="flash")
-    state = {"cache": init_cache(cfg, 1, MAX_LEN)}
-    tok = tokens[:, -1:]
+    batch = session_batch(cfg, "s0")
+    # the enc-dec decode cache holds the encoding: one prefill makes it
+    state = {"cache": runner.start(batch)[1] if cfg.family == "encdec"
+             else init_cache(cfg, 1, MAX_LEN, device="cuda")}
+    tok = batch["tokens"][:, -1:]
 
     def decode():
         with torch.no_grad():
@@ -1359,8 +1508,7 @@ def serving_numbers(cfg, model, runner, sched_us, marker: str, label: str):
                                                   tok)
 
     breakdown = {"prefill": device_breakdown(
-                     lambda: prefill(model, {"tokens": tokens}), marker,
-                     label),
+                     lambda: runner.start(batch), marker, label),
                  "decode": device_breakdown(decode, marker, label, iters=8)}
     prefill_ms = [t * 1e3 for t in runner.prefill_s]
     decode_ms = [t * 1e3 for t in runner.decode_s]
@@ -1662,7 +1810,7 @@ def hybrid_path(base) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     tokens = session_prompt("s0", cfg.vocab)
     prefill = make_prefill_step(cfg, impl="flash")
-    fcap, scap = FlashCapture(), ScanCapture()
+    fcap, scap = FlashCapture(cfg), ScanCapture()
     fa.flash_attention, ms.selective_scan = fcap, scap
     for k in ALL_KERNELS:
         k.launches = 0
@@ -1727,19 +1875,24 @@ def hybrid_path(base) -> dict:
 
 
 def model_f32(base, n_layers: int, seed: int) -> dict:
-    """Phases 10 and 15's float32 check: ``base`` at full width with
-    ``n_layers`` layers in float32 (:func:`full_width`, weights drawn from
-    ``seed``), the logits at every position of an F32_PROMPT-token prefill
-    through the kernels (the float32 flash kernel on attention layers, the
-    scan on mamba layers) against the same model with both entries on their
-    plain versions, on the same card and weights, within SCAN_TOL x max(1,
-    max |logit|), each kernel launched once per layer of its kind and no
-    other kernel.  Returns the numbers printed."""
+    """Phases 10, 15 and 16's float32 check: ``base`` at full width with
+    ``n_layers`` layers (each side, for the enc-dec family) in float32
+    (:func:`full_width`, weights drawn from ``seed``), the logits at every
+    position of an F32_PROMPT-token prefill (of F32_PROMPT seeded frames
+    and as many target tokens, for the enc-dec family) through the kernels
+    (the float32 flash kernel on every attention call, the scan on mamba
+    layers) against the same model with both entries on their plain
+    versions, on the same card and weights, within SCAN_TOL x max(1, max
+    |logit|), each kernel launched once per call of its kind and no other
+    kernel.  Returns the numbers printed."""
     torch.cuda.reset_peak_memory_stats()
     cfg, model, _ = full_width(base, n_layers, "float32", seed=seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     batch = {"tokens": torch.randint(0, cfg.vocab, (1, F32_PROMPT),
                                      generator=g, device="cuda")}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((1, F32_PROMPT, cfg.frontend_dim),
+                                      generator=g, device="cuda")
 
     def logits():
         with torch.no_grad():
@@ -1760,9 +1913,9 @@ def model_f32(base, n_layers: int, seed: int) -> dict:
     torch.cuda.synchronize()
     err = max_abs_err(kern, plain)
     top = float(plain.abs().max())
-    n_attn = attention_layers(cfg)
     want = {k.name: 0 for k in ALL_KERNELS}
-    want.update(flash_attention=n_attn, selective_scan=cfg.n_layers - n_attn)
+    want.update(flash_attention=flash_calls(cfg),
+                selective_scan=cfg.n_layers - attention_layers(cfg))
     if not err <= SCAN_TOL * max(1.0, top) or launches != want:
         raise AssertionError(f"float32 {cfg.name}: kernels vs plain logits "
                              f"differ by {err} (bound {SCAN_TOL} x max(1, "
@@ -1771,6 +1924,303 @@ def model_f32(base, n_layers: int, seed: int) -> dict:
             "max_abs_err": err, "max_abs_logit": top,
             "tolerance": SCAN_TOL * max(1.0, top), "launches": launches,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+# --------------------------------------------------------------------------- #
+# 16. the enc-dec and vlm serving paths
+# --------------------------------------------------------------------------- #
+
+ENCDEC_F32_LAYERS = 2  # a side
+VLM_LAYERS = 4  # of internvl2-76b's 80: 11.2 GB at full width
+
+
+def encdec_vlm_path() -> dict:
+    """Phase 16: seamless-m4t-large-v2 whole behind ``serve.Engine``
+    (:func:`serving_path`: 72 bf16 flash launches a prefill, 24 encoder,
+    24 decoder self and 24 cross, flash held to its plain version on the
+    first call of each), bf16 flash timed at its shape (1, PROMPT / 2, 16,
+    16, 64) non-causal and causal, its float32 check at two layers a side
+    (:func:`model_f32`); then internvl2-76b at full width with VLM_LAYERS
+    layers behind the same engine (patches and text, one flash launch a
+    layer and prefill).  Returns the numbers printed."""
+    out = {}
+    launches, err, f32, serving = serving_path(SEAMLESS_M4T_LARGE_V2)
+    out["seamless"] = {"launches": launches, "flash_bf16_err": err,
+                       "flash_f32_err": f32, "serving": serving}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = SEAMLESS_M4T_LARGE_V2
+    shape = (1, PROMPT // 2, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    out["flash_times"] = {
+        name: time_flash(torch.bfloat16, None, seed=seed, shape=shape,
+                         causal=causal)
+        for name, causal, seed in (("noncausal", False, 21),
+                                   ("causal", True, 22))}
+    out["seamless_f32"] = model_f32(cfg, ENCDEC_F32_LAYERS, seed=3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm = dataclasses.replace(INTERNVL2_76B, n_layers=VLM_LAYERS)
+    launches, err, f32, serving = serving_path(vlm)
+    out["internvl2"] = {"launches": launches, "flash_bf16_err": err,
+                        "flash_f32_err": f32, "serving": serving}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# 17. training on the card
+# --------------------------------------------------------------------------- #
+
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 4
+RESTART_AT = 2
+TRAIN_REMAT = "none"
+#: the AdamW update's bytes a parameter: p, g (bf16) and m, v (float32)
+#: read, p, m, v written
+UPDATE_BYTES = 2 + 2 + 4 + 4 + 2 + 4 + 4
+TRAIN_F32 = dict(batch=4, seq=256)
+
+
+def train_batch(cfg, B: int, S: int, step: int) -> dict:
+    return batch_to(make_batch(cfg, B, S, step), "cuda")
+
+
+def train_steps(step, model, opt, batches):
+    """Run ``step`` over ``batches``; returns the model, the optimizer
+    state, the losses, the grad norms and each step's ms (host clock,
+    synchronised)."""
+    losses, gnorms, ms = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return model, opt, losses, gnorms, ms
+
+
+def train_step_split(cfg, ocfg, model, opt, batch, reps: int = 2) -> dict:
+    """Where a train step's time goes: ``make_train_step``'s three stages
+    run one by one, synchronised (the loss through ``model_loss``, its
+    ``torch.autograd`` gradients, ``adamw.update``), median host ms of
+    ``reps`` runs.  Each run moves the parameters, as a step does."""
+    params = dict(model.named_parameters())
+    ms = collections.defaultdict(list)
+    for _ in range(reps):
+        for p in params.values():
+            p.requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model_loss(cfg, model, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for p in params.values():
+            p.requires_grad_(False)
+        adamw.update(ocfg, params, dict(zip(params, grads)), opt)
+        del grads
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, a, b in (("forward", t0, t1), ("backward", t1, t2),
+                          ("optimizer", t2, t3)):
+            ms[f"{key}_ms"].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+def train_whole(base) -> dict:
+    """``base`` (gemma3-4b) whole in bf16 on the card, TRAIN_STEPS steps of
+    ``make_train_step`` at AdamW's defaults on ``make_batch``'s batches (B
+    = 1, S = TRAIN_SEQ), every launch counter set to 0 just before and read
+    just after: finite losses and grad norms, a gradient for every
+    parameter (a non-zero first moment), every weight matrix moved, no
+    kernel launched.  Then where a step goes (:func:`train_step_split`,
+    and the profiler's idle share) and its bound: 6 x parameters x tokens
+    flops at the bf16 peak, then the update's UPDATE_BYTES a parameter
+    over HBM.  Returns the numbers printed."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(base, remat=TRAIN_REMAT)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(21),
+                       device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    ocfg = adamw.AdamWConfig()
+    opt = adamw.init(ocfg, params)
+    before = {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
+    step = make_train_step(cfg, ocfg)
+    batches = [train_batch(cfg, 1, TRAIN_SEQ, i) for i in range(TRAIN_STEPS)]
+    for k in ALL_KERNELS:
+        k.launches = 0
+    model, opt, losses, gnorms, step_ms = train_steps(step, model, opt,
+                                                      batches)
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(math.isfinite(x) for x in losses + gnorms)
+    still = [k for k, p in model.named_parameters()
+             if torch.equal(p.detach().cpu(), before[k])]
+    no_grad = [k for k, m in opt["m"].items() if not bool(m.any())]
+    del before
+    # a bf16 leaf moves only where lr x its update passes half a bf16 ulp:
+    # the norm gains, all 1.0 (ulp 2^-7), do not at the warm-up's rates;
+    # every weight matrix must move, and every leaf must have had a
+    # gradient (a non-zero first moment)
+    if not finite or no_grad or any(p.dim() > 1 for k, p in params.items()
+                                    if k in still) or any(launches.values()):
+        raise AssertionError(f"training {cfg.name}: losses {losses}, grad "
+                             f"norms {gnorms}, parameters that did not move "
+                             f"{still[:5]} ({len(still)}), with no gradient "
+                             f"{no_grad[:5]} ({len(no_grad)}), launches "
+                             f"{launches}")
+    split = train_step_split(cfg, ocfg, model, opt, batches[0])
+    breakdown = device_breakdown(lambda: step(model, opt, batches[0]),
+                                 "\0", "none", iters=2)
+    t_ops = 6 * n_params * TRAIN_SEQ / BF16_FLOPS_PER_S * 1e3
+    t_bytes = UPDATE_BYTES * n_params / HBM_BYTES_PER_S * 1e3
+    tail = statistics.median(step_ms[1:])
+    return {"model": cfg.name, "layers": cfg.n_layers, "remat": cfg.remat,
+            "params_b": n_params / 1e9, "init_s": init_s,
+            "batch": [1, TRAIN_SEQ], "losses": losses, "grad_norms": gnorms,
+            "step_ms": step_ms, "step_ms_median_after_first": tail,
+            "tokens_per_s": TRAIN_SEQ / tail * 1e3, "peak_gb": peak_gb,
+            "launches": launches, "unmoved_leaves": len(still),
+            "unmoved_leaf_kinds": sorted({k.rsplit(".", 1)[-1]
+                                          for k in still}),
+            "leaves": len(params), "split": split,
+            "breakdown": breakdown, "bound_ms": t_ops + t_bytes,
+            "bound_ops_ms": t_ops, "bound_update_bytes_ms": t_bytes,
+            "step_over_bound": tail / (t_ops + t_bytes)}
+
+
+def train_restart(base) -> dict:
+    """Crash-restart at full width with one local:global period of
+    ``base`` (6 layers, bf16): TRAIN_STEPS steps straight, then RESTART_AT
+    steps, a blocking save through ``CheckpointManager`` into a temporary
+    directory (removed after), a model and optimizer state rebuilt from
+    other seeds and restored from it, and the remaining steps.  The losses
+    and every parameter must be bit-identical.  Returns the numbers
+    printed."""
+    cfg = dataclasses.replace(base, n_layers=base.period, remat="none")
+    ocfg = adamw.AdamWConfig()
+    step = make_train_step(cfg, ocfg)
+    batches = [train_batch(cfg, 1, TRAIN_SEQ, i) for i in range(TRAIN_STEPS)]
+
+    def fresh(seed: int):
+        model = init_model(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), device="cuda")
+        return model, adamw.init(ocfg, dict(model.named_parameters()))
+
+    model, opt = fresh(31)
+    model, opt, straight, _, _ = train_steps(step, model, opt, batches)
+    want = {k: p.detach().clone() for k, p in model.named_parameters()}
+    del model, opt
+    model, opt = fresh(31)
+    model, opt, first, _, _ = train_steps(step, model, opt,
+                                          batches[:RESTART_AT])
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mgr.save(RESTART_AT, train_state(model, opt))
+        save_s = time.perf_counter() - t0
+        ckpt_gb = sum(f.stat().st_size for f in Path(d).rglob("*")
+                      if f.is_file()) / 1e9
+        del model, opt
+        gc.collect()
+        model, opt = fresh(32)  # other weights: the restore overwrites them
+        t0 = time.perf_counter()
+        opt = load_train_state(model,
+                               mgr.restore(train_state(model, opt)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    model, opt, second, _, _ = train_steps(step, model, opt,
+                                           batches[RESTART_AT:])
+    differ = [k for k, p in model.named_parameters()
+              if not torch.equal(p, want[k])]
+    if first + second != straight or differ or Path(d).exists():
+        raise AssertionError(f"restart of {cfg.name} ({cfg.n_layers} layers)"
+                             f": losses {straight} straight, {first} + "
+                             f"{second} restarted; parameters that differ "
+                             f"{differ[:5]} ({len(differ)})")
+    return {"model": cfg.name, "layers": cfg.n_layers, "losses": straight,
+            "restarted_at": RESTART_AT, "checkpoint_gb": ckpt_gb,
+            "save_s": save_s, "restore_s": restore_s,
+            "bit_identical": True}
+
+
+def train_f32_vs_cpu(base) -> dict:
+    """``base`` reduced, in float32 (TF32 off): one train step and the
+    gradients of one loss on the card against the same on the CPU, from the
+    same weights and batch: loss and grad norm within 1e-5 relative, each
+    parameter's gradient within 1e-4 of that leaf's largest |g|.  Returns
+    the numbers printed."""
+    cfg = dataclasses.replace(base.reduced(), remat="none")
+    cpu = init_model(cfg, torch.Generator().manual_seed(41), device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    b = make_batch(cfg, TRAIN_F32["batch"], TRAIN_F32["seq"], 0)
+
+    def grads(model, dev):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        loss = model_loss(cfg, model, batch_to(b, dev))
+        g = torch.autograd.grad(loss, list(params.values()))
+        for p in params.values():
+            p.requires_grad_(False)
+        return float(loss.detach()), {k: x.cpu() for k, x in zip(params, g)}
+
+    (loss_c, g_c), (loss_g, g_g) = grads(cpu, "cpu"), grads(card, "cuda")
+    worst = max(float((g_g[k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30) for k, g in g_c.items())
+    ocfg = adamw.AdamWConfig()
+    metrics = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        _, _, m = make_train_step(cfg, ocfg)(
+            model, adamw.init(ocfg, dict(model.named_parameters())),
+            batch_to(b, dev))
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+    rel = {k: abs(metrics["cuda"][k] - metrics["cpu"][k])
+           / abs(metrics["cpu"][k]) for k in ("loss", "grad_norm")}
+    rel["loss_grad_call"] = abs(loss_g - loss_c) / abs(loss_c)
+    if max(rel.values()) > 1e-5 or worst > 1e-4:
+        raise AssertionError(f"float32 train step of {cfg.name}: card vs "
+                             f"cpu relative differences {rel}, worst "
+                             f"gradient {worst} x its leaf's max |g|")
+    return {"model": cfg.name, "layers": cfg.n_layers,
+            "batch": [TRAIN_F32["batch"], TRAIN_F32["seq"]],
+            "relative_err": rel, "worst_grad_err_over_leaf_max": worst,
+            "metrics": metrics}
+
+
+def train_path() -> dict:
+    """Phase 17, under ``torch.use_deterministic_algorithms(True)``:
+    :func:`train_whole`, :func:`train_restart` and
+    :func:`train_f32_vs_cpu` on gemma3-4b, no kernel launched in any."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        for k in ALL_KERNELS:
+            k.launches = 0
+        out = {"whole": train_whole(GEMMA3_4B)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["restart"] = train_restart(GEMMA3_4B)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["float32_vs_cpu"] = train_f32_vs_cpu(GEMMA3_4B)
+        launches = {k.name: k.launches for k in ALL_KERNELS}
+        if any(launches.values()):
+            raise AssertionError(f"the training phase launched {launches}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2149,15 +2599,16 @@ MIGRATE_COST = 0.25
 PRED_SCENARIO = "chained"
 # the window of roots is cut, never the rate or the cluster, to 1.25 s, so
 # that roots still arrive after the first planning epoch; the run stops
-# half an interval after its third epoch.  At 16,386 workers the host time
+# half an interval after its second epoch.  At 16,386 workers the host time
 # of a decision and of an epoch grows with the pool's containers
 # (WarmPool.used_mb scans the busy containers and idle keys for each
 # worker): a 2.0 s window took 6, 62 and 126 s of epochs and 7 ms a
 # decision besides, the whole script 1,650 s on an H100; and the predictive
 # keep-alive would keep the planner epoching for about a hundred simulated
-# seconds after the window
+# seconds after the window.  A third epoch took 21-48 s of host time on an
+# H100's host, in each of three runs (the card run and its two twins)
 PRED_WINDOW = 1.25
-PRED_EPOCHS = 3
+PRED_EPOCHS = 2
 
 
 class Horizon(Exception):
@@ -2298,8 +2749,8 @@ def predictive_path(replicas: int = TRACE_REPLICAS, device="cuda") -> dict:
             "end_s": run["end_s"],
             "reduced": {"window_s": PRED_WINDOW, "epochs": PRED_EPOCHS,
                         "why": "a window of roots at the full rate and "
-                               "cluster, the run stopped after its third "
-                               "planning epoch"}}
+                               "cluster, the run stopped after its "
+                               f"planning epoch {PRED_EPOCHS}"}}
 
 
 # --------------------------------------------------------------------------- #
@@ -2330,6 +2781,9 @@ def main(argv=None) -> int:
     tag = f"[{card}]"
     print(f"card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
+    # cuBLAS's fixed workspace, read at its first call: phase 17 runs under
+    # torch.use_deterministic_algorithms(True), which requires it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     # float32 products in full float32 (the defaults, stated): the float32
     # checks below compare paths, not TF32 roundings
@@ -2586,6 +3040,30 @@ def main(argv=None) -> int:
     print(f"time {tag}: selective_scan at {tuple(scan_wide['shape'])} "
           f"(jamba-1.5-large-398b): {json.dumps(scan_wide)}", flush=True)
 
+    # 16. the enc-dec and vlm serving paths: seamless-m4t-large-v2 whole,
+    # internvl2-76b at full width with 4 layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    ev = encdec_vlm_path()
+    for name in ("seamless", "internvl2"):
+        print(f"{name} serving end to end {tag}: "
+              f"{json.dumps(ev[name]['serving'])}", flush=True)
+    for name, t in ev["flash_times"].items():
+        print(f"time {tag}: flash_attention_bf16 {name} at "
+              f"{tuple(t['shape'])} (seamless-m4t-large-v2): "
+              f"{json.dumps(t)}", flush=True)
+    print(f"whole model, float32: seamless-m4t-large-v2 with "
+          f"{ENCDEC_F32_LAYERS} + {ENCDEC_F32_LAYERS} layers (full width), "
+          f"S = {F32_PROMPT} frames and tokens; logits at every target "
+          f"position via the float32 flash kernel vs its plain version: "
+          f"{json.dumps(ev['seamless_f32'])}", flush=True)
+
+    # 17. training: gemma3-4b whole, a 6-layer crash-restart, float32 card
+    # vs cpu
+    train = train_path()
+    for name, t in train.items():
+        print(f"training {tag}: {name}: {json.dumps(t)}", flush=True)
+
     rows = []
     for k in KERNELS:
         name = k.name
@@ -2606,14 +3084,18 @@ def main(argv=None) -> int:
     # kernel's are phase 7's (the float32 period: no bf16 path runs it)
     hybrid_flash_err = [f["max_abs_err"] for h in hybrid.values()
                         for f in h["flash_vs_plain"].values()]
+    ev_bf16_err = [e for name in ("seamless", "internvl2")
+                   for e in ev[name]["flash_bf16_err"].values()]
+    ev_f32_err = [e for name in ("seamless", "internvl2")
+                  for e in ev[name]["flash_f32_err"].values()]
     for k, dtype, n, err in (
             (fa.FLASH_ATTENTION_BF16_KERNEL, torch.bfloat16,
              serve_launches["flash_attention_bf16"],
              max(flash_err[torch.bfloat16], *main_err.values(),
-                 *moe_err.values(), *hybrid_flash_err)),
+                 *moe_err.values(), *hybrid_flash_err, *ev_bf16_err)),
             (fa.FLASH_ATTENTION_KERNEL, torch.float32, f32_launches,
              max(flash_err[torch.float32], *main_f32.values(),
-                 *moe_f32.values()))):
+                 *moe_f32.values(), *ev_f32_err))):
         t = flash_t[(dtype, "causal")]
         rows.append({"name": k.name, "route": "cuda",
                      "source": str(k.source.relative_to(ROOT)),
@@ -2635,12 +3117,22 @@ def main(argv=None) -> int:
                          name: h["launches"][k.name]
                          for name, h in hybrid.items()},
                      "float32_full_width_launches": h32["launches"][k.name],
+                     "encdec_serving_launches":
+                         ev["seamless"]["launches"][k.name],
+                     "vlm_serving_launches":
+                         ev["internvl2"]["launches"][k.name],
+                     "encdec_float32_launches":
+                         ev["seamless_f32"]["launches"][k.name],
+                     "training_launches":
+                         train["whole"]["launches"][k.name],
                      "shapes": {name: {
                          key: t_[key] for key in (
                              "shape", "ms", "device_ms", "plain_ms",
                              "library_ms", "library_device_ms", "bound_ms",
                              "bound_by")}
-                         for name, t_ in shape_t.items()}
+                         for name, t_ in (*shape_t.items(), *(
+                             (f"seamless-m4t-large-v2 {n}", t_)
+                             for n, t_ in ev["flash_times"].items()))}
                      if dtype == torch.bfloat16 else None})
     k = ms.SELECTIVE_SCAN_KERNEL
     rows.append({"name": k.name, "route": "cuda",

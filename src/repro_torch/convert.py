@@ -8,7 +8,8 @@ tables — and is replayed into the port's :class:`ClusterState` and
 order ``conf()`` lists workers, which decides ``best_first`` ties) and the
 activation ids of the running instances; the snapshot's ``next_id`` makes
 new ids continue where the source's do.  A model's parameters cross as the
-reference's parameter pytree with numpy leaves (:func:`lm_params_from_jax`).
+reference's parameter pytree with numpy leaves
+(:func:`model_params_from_jax`).
 """
 from __future__ import annotations
 
@@ -109,40 +110,76 @@ def _flatten(prefix: str, tree, out: Dict[str, Any], index=None) -> None:
                 else np.asarray(leaf)
 
 
-def lm_params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
-    """The reference's decoder-only LM parameters (the pytree of
-    ``repro.models.init_model``, leaves as numpy arrays) as the port's
-    :class:`repro_torch.models.transformer.LM` on ``device``.
+def _flatten_stack(prefix: str, stack, layers, out: Dict[str, Any]) -> None:
+    """A ``[G, ...]`` scan stack as the port's layers ``prefix.<layers[g]>``,
+    g < G = len(layers); every leaf must hold G slices."""
+    leaves: Dict[str, Any] = {}
+    _flatten(prefix, stack, leaves)
+    short = sorted(k for k, v in leaves.items()
+                   if v.ndim == 0 or v.shape[0] != len(layers))
+    if short:
+        raise ValueError(f"the pytree does not stack {len(layers)} layers "
+                         f"in {prefix}: {short}")
+    for g, layer in enumerate(layers):
+        _flatten(f"{prefix}.{layer}", stack, out, index=g)
 
-    The reference keeps one ``[G, ...]`` stack per period position in
-    ``tree["layers"]`` and the unrolled remainder in ``tree["tail"]``; the
-    port's flat layer list takes group g, position p as layer
-    ``g * period + p`` and the tail after them.  ``lm_head`` is present
-    only without ``tie_embeddings``.  Names, shapes and the set of leaves
-    must match the port's parameters exactly, or it raises: a layer holds
-    ``mlp``, ``moe`` or both as its ``ffn_kind`` says.  Each leaf takes the
-    dtype of the port's parameter of that name: the model's dtype, but
-    float32 for a mamba block's ``a_log`` and ``d_skip`` and a MoE
-    ``router``, as in the reference."""
+
+def flatten_jax_params(cfg: ModelConfig, tree) -> Dict[str, np.ndarray]:
+    """The reference's parameter pytree (leaves as numpy arrays) as
+    ``{the port's parameter name: leaf}``: the port's flat layer lists take
+    the reference's ``[G, ...]`` stacks apart.  A decoder-only LM keeps one
+    stack per period position in ``tree["layers"]`` (group g, position p
+    becomes layer ``g * period + p``) and the unrolled remainder in
+    ``tree["tail"]``; the enc-dec family keeps one stack per side, ``enc``
+    and ``dec``.  Raises ``ValueError`` when a stack or leaf the config
+    implies is missing."""
+    flat: Dict[str, Any] = {}
+    try:
+        for name, leaf in tree.items():
+            if name in ("layers", "tail", "enc", "dec"):
+                continue
+            if isinstance(leaf, Mapping):
+                _flatten(name, leaf, flat)
+            else:
+                flat[name] = np.asarray(leaf)
+        if cfg.family == "encdec":
+            _flatten_stack("enc", tree["enc"], range(cfg.enc_layers), flat)
+            _flatten_stack("dec", tree["dec"], range(cfg.n_layers), flat)
+            return flat
+        for p in range(cfg.period):
+            _flatten_stack("layers", tree["layers"][p],
+                           range(p, cfg.n_groups * cfg.period, cfg.period),
+                           flat)
+        n_stacked = cfg.n_groups * cfg.period
+        for t in range(cfg.n_tail):
+            _flatten(f"layers.{n_stacked + t}", tree["tail"][t], flat)
+    except (KeyError, IndexError, TypeError) as e:
+        raise ValueError(f"the pytree does not hold {cfg.name}'s layers: "
+                         f"{e!r}") from e
+    return flat
+
+
+def model_params_from_jax(cfg: ModelConfig, tree, *, device="cuda"):
+    """The reference's parameters (the pytree of ``repro.models.
+    init_model``, leaves as numpy arrays) as the port's model on
+    ``device``: :class:`repro_torch.models.transformer.LM`, or
+    :class:`repro_torch.models.encdec.EncDec` for the enc-dec family.
+
+    Names (:func:`flatten_jax_params`), shapes and the set of leaves must
+    match the port's parameters exactly, or it raises: ``lm_head`` is
+    present only without ``tie_embeddings``, a layer holds ``mlp``, ``moe``
+    or both as its ``ffn_kind`` says, LayerNorms hold ``w`` and ``b``.
+    Each leaf takes the dtype of the port's parameter of that name: the
+    model's dtype, but float32 for a mamba block's ``a_log`` and ``d_skip``
+    and a MoE ``router``, as in the reference."""
     from .kernels.affinity.ops import resolve_device
-    from .models.model import check_supported
+    from .models.encdec import EncDec
     from .models.transformer import LM
 
-    check_supported(cfg)
     dev = resolve_device(device)
-    flat: Dict[str, Any] = {}
-    for name in ("embed", "final_norm", "frontend"):
-        if name in tree:
-            _flatten(name, tree[name], flat)
-    if "lm_head" in tree:
-        flat["lm_head"] = np.asarray(tree["lm_head"])
-    n_stacked = cfg.n_groups * cfg.period
-    for i in range(n_stacked):
-        g, p = divmod(i, cfg.period)
-        _flatten(f"layers.{i}", tree["layers"][p], flat, index=g)
-    for t in range(cfg.n_tail):
-        _flatten(f"layers.{n_stacked + t}", tree["tail"][t], flat)
-    model = LM(cfg, generator=None, device="meta")
+    flat = flatten_jax_params(cfg, tree)
+    cls = EncDec if cfg.family == "encdec" else LM
+    model = cls(cfg, generator=None, device="meta")
     params = dict(model.named_parameters())
     want = {k: tuple(p.shape) for k, p in params.items()}
     got = {k: tuple(v.shape) for k, v in flat.items()}

@@ -8,3 +8,17 @@ version (the CPU path and the yardstick on the card):
 * mamba_scan — the mamba-1 selective scan of the SSM prefill (CUDA C++,
   ``mamba_scan/csrc/``)
 """
+import torch
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd is recording and an input requires grad: the
+    kernels (and, for agreement across devices, their plain versions
+    behind the same entry) are forward-only, so their output would carry no
+    ``grad_fn`` and a training graph through them would silently give no
+    gradient upstream."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only (the kernel has no backward): call it "
+            "under torch.no_grad(), or train through the model's plain "
+            "attention path (cfg.attn_impl)")

@@ -2,9 +2,11 @@
 signature.  A CUDA tensor launches the hand-written kernel for its dtype
 (:func:`.kernel.choose_kernel`); a CPU tensor runs the plain PyTorch
 version (:mod:`.ref`).  Nothing falls back: a CUDA launch that fails
-raises."""
+raises.  The kernel has no backward, so an input that requires grad is
+refused on both devices (:func:`..refuse_autograd`)."""
 from __future__ import annotations
 
+from .. import refuse_autograd
 from .kernel import flash_attention_kernel
 from .ref import flash_attention_ref
 
@@ -17,6 +19,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     positions gets a ``TypeError``, not a wrong answer.  Nothing is padded:
     the kernel masks the ragged edges.
     """
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cuda":
         return flash_attention_kernel(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=causal,

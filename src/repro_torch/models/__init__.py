@@ -1,5 +1,7 @@
-"""The model stack of the port (the decoder-only families): the same
-entry points as the JAX package's ``repro.models``, on PyTorch modules."""
-from .model import init_cache, init_model, model_decode_step, model_forward
+"""The model stack of the port: the same entry points as the JAX package's
+``repro.models``, on PyTorch modules."""
+from .model import (init_cache, init_model, model_decode_step,
+                    model_flops_per_token, model_forward, model_loss)
 
-__all__ = ["init_model", "model_forward", "model_decode_step", "init_cache"]
+__all__ = ["init_model", "model_forward", "model_loss", "model_decode_step",
+           "init_cache", "model_flops_per_token"]

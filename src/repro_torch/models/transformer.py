@@ -9,8 +9,8 @@ the ``n_tail`` tail layers follow with ``layer_kind(p)`` of their own index
 p.  So layer i always has period position ``i % period``, which decides its
 mixer (``layer_kind``: attention, local attention or mamba) and its FFN
 (``ffn_kind``: dense, MoE, or MoE with arctic's dense residual).
-``remat`` is a training knob; the serving path runs under
-``torch.no_grad()`` and ignores it.
+``remat="full"`` checkpoints each layer in a train step (:func:`remat`);
+the serving path runs under ``torch.no_grad()``, where it does nothing.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -38,9 +39,11 @@ from .ssm import Mamba, init_mamba_state, mamba_decode_step, mamba_forward
 
 class Attention(nn.Module):
     """Projections ``wq``, ``wk``, ``wv``, ``wo`` (``[d_in, d_out]``), and
-    ``bq``, ``bk``, ``bv`` with ``qkv_bias``."""
+    ``bq``, ``bk``, ``bv`` with ``qkv_bias`` (the config's unless given: the
+    enc-dec family's cross-attention has none)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, *, generator, device):
+    def __init__(self, cfg: ModelConfig, dtype, *, generator, device,
+                 qkv_bias: Optional[bool] = None):
         super().__init__()
         D, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
         hd = cfg.resolved_head_dim
@@ -50,8 +53,8 @@ class Attention(nn.Module):
         self.wk = normal_param((D, K * hd), dtype, **g)
         self.wv = normal_param((D, K * hd), dtype, **g)
         self.wo = normal_param((H * hd, D), dtype, **g)
-        self.qkv_bias = cfg.qkv_bias
-        if cfg.qkv_bias:
+        self.qkv_bias = cfg.qkv_bias if qkv_bias is None else qkv_bias
+        if self.qkv_bias:
             self.bq = const_param((H * hd,), 0.0, dtype, device)
             self.bk = const_param((K * hd,), 0.0, dtype, device)
             self.bv = const_param((K * hd,), 0.0, dtype, device)
@@ -163,11 +166,26 @@ def _apply_layer(cfg: ModelConfig, layer: Layer, x, positions, impl):
 def _input_embeds(cfg: ModelConfig, model: LM, batch):
     x = model.embed(batch["tokens"])
     if cfg.frontend == "vision":
-        p = batch["patches"] @ model.frontend["w1"]
+        # float32 patches against bf16 weights multiply in float32, as
+        # JAX's type promotion has it
+        w1 = model.frontend["w1"]
+        dt = torch.promote_types(batch["patches"].dtype, w1.dtype)
+        p = batch["patches"].to(dt) @ w1.to(dt)
         p = F.gelu(p.float(), approximate="tanh").to(x.dtype) \
             @ model.frontend["w2"]
         x = torch.cat([p.to(x.dtype), x], dim=1)
     return x
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat`` is
+    ``"full"`` and autograd is recording (a train step): the counterpart of
+    the reference's ``jax.checkpoint`` around its scan body.  The numbers
+    are the same; the layer's activations are recomputed in the backward
+    pass instead of kept."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def lm_forward(cfg: ModelConfig, model: LM, batch, *, impl=None):
@@ -176,7 +194,7 @@ def lm_forward(cfg: ModelConfig, model: LM, batch, *, impl=None):
     x = _input_embeds(cfg, model, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for layer in model.layers:
-        x = _apply_layer(cfg, layer, x, positions, impl)
+        x = remat(cfg, _apply_layer, cfg, layer, x, positions, impl)
     return model.final_norm(x)
 
 
@@ -184,6 +202,30 @@ def head_weights(cfg: ModelConfig, model: LM):
     if cfg.tie_embeddings:
         return model.embed.tok.T
     return model.lm_head
+
+
+def lm_loss(cfg: ModelConfig, model, hidden, labels):
+    """Chunked cross-entropy: logits are made ``loss_chunk`` tokens at a
+    time, in float32; labels below 0 weigh nothing.  The mean over the
+    weighted tokens, as the reference's ``lm_loss`` (its padding of the
+    last chunk adds only weightless rows, so the port does not pad)."""
+    B, S, D = hidden.shape
+    head = head_weights(cfg, model)
+    h = hidden.reshape(B * S, D)
+    y = labels.reshape(B * S)
+    chunk = min(cfg.loss_chunk, h.shape[0])
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, h.shape[0], chunk):
+        yc = y[c0:c0 + chunk]
+        logits = (h[c0:c0 + chunk] @ head).float()  # [chunk, V]
+        lse = torch.logsumexp(logits, dim=-1)
+        correct = logits.gather(
+            -1, yc.clamp(0, cfg.vocab - 1).long()[:, None])[:, 0]
+        w = (yc >= 0).float()
+        tot = tot + ((lse - correct) * w).sum()
+        cnt = cnt + w.sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def lm_logits(cfg: ModelConfig, model: LM, hidden):

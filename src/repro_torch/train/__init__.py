@@ -1,2 +1,2 @@
-"""Step factories of the port: prefill and serve (decode).  The train step
-comes with the training slice (``ROADMAP.md``)."""
+"""Step factories of the port: train (loss, gradients, AdamW), prefill and
+serve (decode)."""

@@ -1,18 +1,119 @@
-"""prefill_step / serve_step factories.
+"""train_step / prefill_step / serve_step factories.
 
-Both return plain functions over ``(model, ...)`` that run under
-``torch.no_grad()``.  ``make_train_step`` (loss, gradients, AdamW) waits
-for the training slice (``ROADMAP.md``, Queue 1).
+Each returns a plain function over ``(model, ...)``.  The prefill and serve
+steps run under ``torch.no_grad()``.  The train step runs the loss through
+``model_loss`` under autograd: no hand-written kernel has a backward (nor
+has any Pallas kernel of the JAX package), so attention goes through
+``cfg.attn_impl`` ("chunked" by default, as in the reference) and the
+kernel entries refuse inputs that require grad.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import model_decode_step, model_forward
+from repro_torch.models.model import (model_decode_step, model_forward,
+                                      model_loss)
 from repro_torch.models.transformer import lm_logits
+from repro_torch.optim import adamw
+from repro_torch.optim.compress import GradCompressor
+
+#: the families whose mixer runs the selective-scan kernel, which has no
+#: backward
+SCAN_FAMILIES = ("ssm", "hybrid")
+
+
+def batch_to(batch: Mapping, device) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays (``data.pipeline.make_batch``) as tensors on
+    ``device``: token ids and labels as int64, frames and patches as they
+    are (float32)."""
+    out = {}
+    for name, arr in batch.items():
+        t = torch.as_tensor(np.asarray(arr))
+        if not t.is_floating_point():
+            t = t.long()
+        out[name] = t.to(device)
+    return out
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: adamw.AdamWConfig,
+    *,
+    impl: str = None,
+    microbatches: int = 1,
+    compressor: Optional[GradCompressor] = None,
+) -> Callable:
+    """(model, opt_state, batch) -> (model, opt_state, metrics).
+
+    The gradients are ``torch.autograd`` gradients of ``model_loss`` with
+    respect to every parameter (turned on for the step, off again after).
+    ``microbatches > 1`` accumulates them in float32 over equal splits of
+    the batch and divides, as the reference does.  Then the optional
+    compressor and ``adamw.update``, which writes the parameters and the
+    moments in place.  ``metrics``: ``loss``, ``grad_norm`` and ``lr`` as
+    0-d float32 tensors.
+
+    The ssm and hybrid families raise ``NotImplementedError``: their mamba
+    layers run the scan kernel, which has no backward, and the reference's
+    differentiable jnp scan (with ``ssm_scan_dtype``) is not ported."""
+    if cfg.family in SCAN_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.family} family is not ported: its mamba "
+            "layers run the forward-only selective-scan kernel; it needs "
+            "the reference's chunked / associative jnp scan as a "
+            "differentiable PyTorch path, with ssm_scan_dtype (ROADMAP.md, "
+            "Queue 1)")
+
+    def grads_of(model, params, batch):
+        loss = model_loss(cfg, model, batch, impl=impl)
+        return loss, torch.autograd.grad(loss, list(params.values()))
+
+    def train_step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        try:
+            if microbatches > 1:
+                B = next(iter(batch.values())).shape[0]
+                if B % microbatches:
+                    raise ValueError(f"batch {B} does not split into "
+                                     f"{microbatches} microbatches")
+                n = B // microbatches
+                losses = []
+                acc = [torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device) for p in params.values()]
+                for i in range(microbatches):
+                    mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                    mloss, grads = grads_of(model, params, mb)
+                    losses.append(mloss.detach())
+                    for a, g in zip(acc, grads):
+                        a.add_(g)
+                loss = sum(losses) / microbatches
+                grads = [a / microbatches for a in acc]
+            else:
+                loss, grads = grads_of(model, params, batch)
+                loss = loss.detach()
+        finally:
+            for p in params.values():
+                p.requires_grad_(False)
+        grads = dict(zip(params, grads))
+
+        if compressor is not None:
+            grads, opt_state = compressor.apply(grads, opt_state)
+            core = {k: v for k, v in opt_state.items() if k != "compress"}
+            _, core, metrics = adamw.update(opt_cfg, params, grads, core)
+            opt_state = {**core, "compress": opt_state["compress"]}
+        else:
+            _, opt_state, metrics = adamw.update(opt_cfg, params, grads,
+                                                 opt_state)
+        metrics["loss"] = loss
+        return model, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, impl: str = None) -> Callable:

@@ -218,6 +218,22 @@ def test_dropped_tile_is_the_one_most_rows_see(Sq, Skv, causal, window,
     assert chip_smoke.dropped_tile(Sq, Skv, causal, window) == tile
 
 
+@pytest.mark.parametrize("Skv,causal,window,span", [
+    # a causal mask or a window: one tile, which early rows see whole
+    (2048, True, None, 1),
+    (2048, False, 128, 1),
+    # every row sees every key: a quarter of the tiles (32 / 4, 5 / 4 up)
+    (2048, False, None, 8),
+    (300, False, None, 2),
+    (64, False, None, 1),
+])
+def test_dropped_span_is_a_share_of_the_keys_where_rows_see_all(
+        Skv, causal, window, span):
+    import chip_smoke
+
+    assert chip_smoke.dropped_span(Skv, causal, window) == span
+
+
 @pytest.mark.parametrize("Sq,Skv,causal,tile", [
     # the tile before the last row's diagonal tile (4, rows 256-299)
     (300, 300, True, 3),

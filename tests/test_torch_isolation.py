@@ -50,7 +50,10 @@ def test_a_fresh_interpreter_loads_no_jax_and_no_reference_module():
         "repro_torch.kernels.mamba_scan, repro_torch.models.ssm, "
         "repro_torch.train.step, repro_torch.serve.engine, repro_torch.pool, "
         "repro_torch.cluster.topology, repro_torch.launch.serve, "
-        "repro_torch.forecast, repro_torch.models.moe, chip_smoke\n"
+        "repro_torch.forecast, repro_torch.models.moe, "
+        "repro_torch.models.encdec, repro_torch.optim.adamw, "
+        "repro_torch.optim.compress, repro_torch.checkpoint.manager, "
+        "repro_torch.data.pipeline, repro_torch.launch.train, chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,

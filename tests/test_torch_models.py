@@ -1,5 +1,5 @@
 """The port's model stack against the JAX package's, on the CPU, with the
-reference's parameters carried across by ``lm_params_from_jax``.
+reference's parameters carried across by ``model_params_from_jax``.
 
 Reduced configs (the reference's ``ModelConfig.reduced()``, float32):
 gemma3-4b with 13 layers (two 6-layer periods and a 1-layer tail, window
@@ -29,7 +29,7 @@ from repro.models import model_decode_step as jax_decode  # noqa: E402
 from repro.models.transformer import merge_decode_buffer as jax_merge  # noqa: E402
 from repro.train.step import make_prefill_step as jax_prefill_step  # noqa: E402
 from repro_torch.configs import ARCHS, param_counts  # noqa: E402
-from repro_torch.convert import lm_params_from_jax  # noqa: E402
+from repro_torch.convert import model_params_from_jax  # noqa: E402
 from repro_torch.models import (init_cache, init_model,  # noqa: E402
                                 model_forward)
 from repro_torch.models import attention as port_attn  # noqa: E402
@@ -84,7 +84,7 @@ def pair(arch, seed=0):
     jcfg, tcfg = configs(arch)
     tree = jax_params(jcfg, seed)
     params = jax.tree.map(jnp.asarray, tree)
-    return jcfg, tcfg, params, lm_params_from_jax(tcfg, tree, device="cpu")
+    return jcfg, tcfg, params, model_params_from_jax(tcfg, tree, device="cpu")
 
 
 def close(jax_logits, torch_logits) -> float:
@@ -221,20 +221,6 @@ def test_decode_pieces_equal_the_reference():
                                             T(vb), 8, 10)) < 1e-5
     with pytest.raises(IndexError, match="outside a cache"):
         port_attn.cache_insert(kt, vt, T(new), T(new), L)
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
-def test_moe_ssm_and_encdec_raise_not_implemented(arch):
-    """Only the enc-dec family is still refused (the moe and hybrid families
-    run: ``test_torch_moe.py``)."""
-    cfg = ARCHS[arch].reduced()
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_model(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lm_params_from_jax(cfg, {}, device="cpu")
 
 
 def test_the_ports_own_weights_are_seeded_and_finite():

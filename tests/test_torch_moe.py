@@ -11,7 +11,7 @@ multiple of ``group_size`` (the zero-padded last group), and one token
 keeps the reference's float32 router, and the reduced qwen3-moe-30b-a3b,
 arctic-480b (MoE with its dense residual) and jamba-1.5-large-398b
 (attention and mamba layers, dense and MoE FFNs in one stack), with the
-reference's parameters carried across by ``lm_params_from_jax``: the
+reference's parameters carried across by ``model_params_from_jax``: the
 prefill at S = 320 on the flash path (the reference's Pallas kernel in
 interpret mode, the port's kernel's plain version) and 20 decode steps from
 an empty cache, logits held to 1e-4 absolute, as ``test_torch_models.py``
@@ -34,7 +34,7 @@ from repro.models import model_decode_step as jax_decode  # noqa: E402
 from repro.models import moe as jax_moe  # noqa: E402
 from repro.train.step import make_prefill_step as jax_prefill_step  # noqa: E402
 from repro_torch.configs import ARCHS, MoESpec  # noqa: E402
-from repro_torch.convert import lm_params_from_jax  # noqa: E402
+from repro_torch.convert import model_params_from_jax  # noqa: E402
 from repro_torch.models import init_cache, init_model  # noqa: E402
 from repro_torch.models import moe as port_moe  # noqa: E402
 from repro_torch.train.step import (make_prefill_step,  # noqa: E402
@@ -183,7 +183,7 @@ def pair(arch, dtype=None, seed=0):
     jcfg, tcfg = configs(arch, **over)
     tree = ssm_params(jcfg, seed)
     return (jcfg, tcfg, jax.tree.map(jnp.asarray, tree),
-            lm_params_from_jax(tcfg, tree, device="cpu"))
+            model_params_from_jax(tcfg, tree, device="cpu"))
 
 
 def test_the_layers_hold_the_references_ffns():
@@ -227,7 +227,7 @@ def test_a_tree_without_the_moe_leaves_is_refused():
     tree = ssm_params(jcfg, 0)
     del tree["layers"][0]["moe"]["router"]
     with pytest.raises(ValueError, match="missing.*router"):
-        lm_params_from_jax(tcfg, tree, device="cpu")
+        model_params_from_jax(tcfg, tree, device="cpu")
 
 
 def _prompt(cfg, B, S, seed):

@@ -6,7 +6,7 @@ same seeds and a shared fake clock; the port's decides on
 prefill / decode / train sequence with a cell failure in the middle must
 place every request on the same cell, relocate the same sessions, and,
 with a runner that decodes on reduced gemma3-4b or reduced falcon-mamba-7b
-(the reference's weights converted with ``lm_params_from_jax``), produce
+(the reference's weights converted with ``model_params_from_jax``), produce
 the same argmax tokens.  Placements and tokens are compared for equality;
 the logits behind the tokens agree within 1e-4
 (``tests/test_torch_models.py``, ``tests/test_torch_ssm.py``)."""
@@ -29,13 +29,15 @@ from repro.pool import WarmPool as JaxWarmPool  # noqa: E402
 from repro.pool import make_policy as jax_make_policy  # noqa: E402
 from repro.serve.engine import Engine as JaxEngine  # noqa: E402
 from repro.serve.engine import Request as JaxRequest  # noqa: E402
+from repro.train.step import make_prefill_step as jax_prefill  # noqa: E402
 from repro_torch.cluster.topology import two_pod_cells  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
-from repro_torch.convert import lm_params_from_jax  # noqa: E402
+from repro_torch.convert import model_params_from_jax  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.models import init_cache, model_decode_step  # noqa: E402
 from repro_torch.pool import WarmPool, make_policy  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from repro_torch.train.step import make_prefill_step  # noqa: E402
 from test_torch_models import jax_params  # noqa: E402
 from test_torch_ssm import ssm_params  # noqa: E402
 
@@ -127,7 +129,7 @@ def gemma():
     jcfg = dataclasses.replace(JAX_ARCHS[ARCH].reduced(), **over)
     tcfg = dataclasses.replace(ARCHS[ARCH].reduced(), **over)
     tree = jax_params(jcfg, seed=0)
-    model = lm_params_from_jax(tcfg, tree, device="cpu")
+    model = model_params_from_jax(tcfg, tree, device="cpu")
     return jcfg, tcfg, jax.tree.map(jnp.asarray, tree), model
 
 
@@ -152,7 +154,7 @@ def test_engine_serving_falcon_mamba_equals_the_reference():
     arch = "falcon-mamba-7b"
     jcfg, tcfg = JAX_ARCHS[arch].reduced(), ARCHS[arch].reduced()
     tree = ssm_params(jcfg, seed=0)
-    model = lm_params_from_jax(tcfg, tree, device="cpu")
+    model = model_params_from_jax(tcfg, tree, device="cpu")
     params = jax.tree.map(jnp.asarray, tree)
     jclock, tclock = [0.0], [0.0]
     want = drive(JaxEngine, JaxRequest, jax_cells(),
@@ -184,6 +186,70 @@ def test_engine_with_a_warm_pool_equals_the_reference():
                 pool=tpool, device="cpu")
     assert got == want
     assert tpool.metrics.snapshot() == jpool.metrics.snapshot()
+
+
+def vlm_prompt(cfg, session: str):
+    """A session's seeded prompt: n_patches patch features and text tokens,
+    320 positions in all (over 256 x 256, so attention takes its chunked
+    or flash path, not the direct one)."""
+    rng = np.random.default_rng(int(session[1:]))
+    return {"patches": rng.standard_normal(
+                (1, cfg.n_patches, cfg.frontend_dim), dtype=np.float32),
+            "tokens": rng.integers(0, cfg.vocab,
+                                   (1, 320 - cfg.n_patches)).astype(np.int32)}
+
+
+def vlm_runner(prefill, decode, clock, seen):
+    """``decode`` (a runner as above) for decodes; a prefill runs
+    ``prefill`` on the session's prompt, keeps its logits in ``seen`` and
+    returns their argmax."""
+    def run(req, cell):
+        if req.kind != "prefill":
+            return decode(req, cell)
+        clock[0] += 0.01
+        logits = np.asarray(prefill(req.session))
+        seen.append(logits)
+        decode(req, cell)  # the session's (empty) decode cache
+        return int(np.argmax(logits[0]))
+
+    return run
+
+
+def test_engine_serving_internvl2_with_patches_equals_the_reference():
+    """The vlm path behind the engine: reduced internvl2-76b prefills its
+    sessions' patches and text (the reference's default chunked attention,
+    the port's flash path on the CPU), then decodes; the prefill logits
+    within 1e-4, the placements and tokens equal."""
+    arch = "internvl2-76b"
+    jcfg, tcfg = JAX_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    tree = jax_params(jcfg, seed=2)
+    model = model_params_from_jax(tcfg, tree, device="cpu")
+    params = jax.tree.map(jnp.asarray, tree)
+    jpre, tpre = jax_prefill(jcfg), make_prefill_step(tcfg, impl="flash")
+
+    def jax_prompt(session):
+        return jpre(params, jax.tree.map(jnp.asarray,
+                                         vlm_prompt(tcfg, session)))
+
+    def port_prompt(session):
+        b = vlm_prompt(tcfg, session)
+        return tpre(model, {"patches": torch.from_numpy(b["patches"]),
+                            "tokens": torch.from_numpy(b["tokens"]).long()})
+
+    jclock, tclock, jseen, tseen = [0.0], [0.0], [], []
+    want = drive(JaxEngine, JaxRequest, jax_cells(),
+                 vlm_runner(jax_prompt, jax_runner(jcfg, params, jclock),
+                            jclock, jseen), jclock, arch=arch)
+    got = drive(Engine, Request, two_pod_cells(),
+                vlm_runner(port_prompt, port_runner(tcfg, model, tclock),
+                           tclock, tseen), tclock, arch=arch, device="cpu")
+    assert got == want
+    completions, relocations, _ = got
+    assert all(ok for _, ok, _ in completions) and relocations
+    assert len(tseen) == len(jseen) > 4  # the failed cell's re-prefilled
+    for a, b in zip(jseen, tseen):
+        assert a.shape == b.shape == (1, tcfg.vocab)
+        assert float(np.max(np.abs(a - b))) < 1e-4
 
 
 def test_the_default_device_is_the_card(monkeypatch):

@@ -1,5 +1,5 @@
 """The port's mamba-1 path against the JAX package's, on the CPU, with the
-reference's parameters carried across by ``lm_params_from_jax``.
+reference's parameters carried across by ``model_params_from_jax``.
 
 falcon-mamba-7b ``reduced()`` (2 mamba layers, d_model 64, d_inner 128,
 N = 4, dt_rank 8, float32), also with ``d_ff = 0`` as the full model has
@@ -27,7 +27,7 @@ from repro.models import model_decode_step as jax_decode  # noqa: E402
 from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.train.step import make_prefill_step as jax_prefill_step  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
-from repro_torch.convert import lm_params_from_jax  # noqa: E402
+from repro_torch.convert import model_params_from_jax  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.models import init_cache, init_model  # noqa: E402
 from repro_torch.models import ssm as port_ssm  # noqa: E402
@@ -81,7 +81,7 @@ def pair(d_ff=None, dtype=None, seed=0):
     jcfg, tcfg = configs(**over)
     tree = ssm_params(jcfg, seed)
     return (jcfg, tcfg, jax.tree.map(jnp.asarray, tree),
-            lm_params_from_jax(tcfg, tree, device="cpu"))
+            model_params_from_jax(tcfg, tree, device="cpu"))
 
 
 def close(jax_out, torch_out) -> float:
