@@ -168,6 +168,26 @@ Phases, one line each (every time beside the card's name and power limit):
    6-layer full-width crash-restart through ``CheckpointManager``, losses
    and parameters bit-identical to the straight run; reduced gemma3-4b in
    float32, one step and its gradients on the card against the CPU;
+18. mesh and roofline tooling — (a) ``python -m repro_torch.launch.dryrun
+   --device cuda`` at full size, one subprocess each, started after phase 5
+   and run beside phases 6-16 on the host's CPU: gemma3-4b train_4k and
+   falcon-mamba-7b prefill_32k on the (32, 8) mesh of 256 fake ranks,
+   gemma3-4b train_4k on (2, 32, 8); each record ``status: ok``, positive
+   flops, per-device arguments under 80 GB, its compute, memory and
+   collective terms printed; (b) ``RooflineOracle.add_module`` at the
+   H100's peaks over one prefill of 4096 tokens (B = 1, bf16) of gemma3-4b
+   and of falcon-mamba-7b (its chunked scan), each timed after and held at
+   or above the bound; phase 17's train step counted on ``meta`` beside
+   its hand-worked bound; (c) a one-rank NCCL process group, a (1, 1)
+   ``DeviceMesh``: gemma3-4b with 6 layers at full width, a prefill with
+   DTensor parameters under the activation rules bit-identical to the
+   plain one;
+19. ssm and hybrid training — under deterministic algorithms, no kernel
+   launched (the scan kernel's counter stays 0): falcon-mamba-7b at full
+   width with 40 of 64 layers (``SSM_TRAIN_LAYERS``), bf16, B = 1, S =
+   1024, ``remat="full"``, 4 steps through the differentiable scan, as
+   phase 17; reduced falcon-mamba-7b and jamba in float32, card vs CPU;
+   jamba's full width printed as not fitting one card;
 
 then a ``{"kernels": [...]}`` line, the card line, and the result line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -175,6 +195,7 @@ exits non-zero and prints no result line.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import copy
 import ctypes
@@ -205,6 +226,8 @@ from repro_torch.cluster.simulator import (ClusterSim,  # noqa: E402
                                            SimParams)
 from repro_torch.cluster.topology import (WorkerSpec,  # noqa: E402
                                           paper_testbed, two_pod_cells)
+from repro_torch.analysis import RooflineOracle  # noqa: E402
+from repro_torch.configs import param_counts  # noqa: E402
 from repro_torch.configs.registry import (  # noqa: E402
     ARCTIC_480B, FALCON_MAMBA_7B, GEMMA3_4B, INTERNVL2_76B, JAMBA_15_LARGE,
     QWEN3_MOE_30B, SEAMLESS_M4T_LARGE_V2)
@@ -225,17 +248,22 @@ from repro_torch.kernels.affinity.ref import affinity_valid_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16  # noqa: E402
 from repro_torch.launch.train import (load_train_state,  # noqa: E402
                                       train_state)
 from repro_torch.models import (init_cache, init_model,  # noqa: E402
                                 model_decode_step, model_forward,
-                                model_loss)
+                                model_loss, params_shape)
 from repro_torch.models import encdec as ed  # noqa: E402
 from repro_torch.models.moe import moe_ffn  # noqa: E402
 from repro_torch.models.transformer import lm_logits  # noqa: E402
 from repro_torch.obs import Obs, validate_chrome_trace  # noqa: E402
 from repro_torch.platform import Platform  # noqa: E402
 from repro_torch.pool import StartCosts, WarmPool, make_policy  # noqa: E402
+from repro_torch.roofline.flops import (OpCounter,  # noqa: E402
+                                        count)
+from repro_torch.sharding import specs as sh  # noqa: E402
+from repro_torch.sharding.ctx import sharding_rules  # noqa: E402
 from repro_torch.resilience import (HEAL_ZONE, KILL_ZONE,  # noqa: E402
                                     ChaosHarness, Fault, Resilience,
                                     RetryPolicy)
@@ -2006,7 +2034,8 @@ def train_step_split(cfg, ocfg, model, opt, batch, reps: int = 2) -> dict:
     """Where a train step's time goes: ``make_train_step``'s three stages
     run one by one, synchronised (the loss through ``model_loss``, its
     ``torch.autograd`` gradients, ``adamw.update``), median host ms of
-    ``reps`` runs.  Each run moves the parameters, as a step does."""
+    ``reps`` runs.  Each run moves the parameters, as a step does.  The
+    mamba layers take the train path's differentiable scan."""
     params = dict(model.named_parameters())
     ms = collections.defaultdict(list)
     for _ in range(reps):
@@ -2014,7 +2043,7 @@ def train_step_split(cfg, ocfg, model, opt, batch, reps: int = 2) -> dict:
             p.requires_grad_(True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = model_loss(cfg, model, batch)
+        loss = model_loss(cfg, model, batch, scan_impl="chunked")
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         grads = torch.autograd.grad(loss, list(params.values()))
@@ -2032,8 +2061,9 @@ def train_step_split(cfg, ocfg, model, opt, batch, reps: int = 2) -> dict:
     return {k: statistics.median(v) for k, v in ms.items()}
 
 
-def train_whole(base) -> dict:
-    """``base`` (gemma3-4b) whole in bf16 on the card, TRAIN_STEPS steps of
+def train_whole(base, n_layers: int = None, remat: str = TRAIN_REMAT) -> dict:
+    """``base`` in bf16 on the card (whole, or its first ``n_layers``
+    layers at full width), TRAIN_STEPS steps of
     ``make_train_step`` at AdamW's defaults on ``make_batch``'s batches (B
     = 1, S = TRAIN_SEQ), every launch counter set to 0 just before and read
     just after: finite losses and grad norms, a gradient for every
@@ -2043,7 +2073,8 @@ def train_whole(base) -> dict:
     flops at the bf16 peak, then the update's UPDATE_BYTES a parameter
     over HBM.  Returns the numbers printed."""
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(base, remat=TRAIN_REMAT)
+    cfg = dataclasses.replace(base, remat=remat,
+                              n_layers=n_layers or base.n_layers)
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device="cuda").manual_seed(21),
                        device="cuda")
@@ -2063,9 +2094,16 @@ def train_whole(base) -> dict:
     launches = {k.name: k.launches for k in ALL_KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finite = all(math.isfinite(x) for x in losses + gnorms)
+    # a zero-width FFN (falcon-mamba's d_ff = 0) has empty leaves, and the
+    # norm before it feeds nothing else: no gradient reaches them
+    inert = {k for k, p in params.items() if p.numel() == 0}
+    if cfg.d_ff == 0:
+        inert |= {k for k in params if re.fullmatch(r"layers\.\d+\.ln2\.\w+",
+                                                    k)}
     still = [k for k, p in model.named_parameters()
-             if torch.equal(p.detach().cpu(), before[k])]
-    no_grad = [k for k, m in opt["m"].items() if not bool(m.any())]
+             if k not in inert and torch.equal(p.detach().cpu(), before[k])]
+    no_grad = [k for k, m in opt["m"].items()
+               if k not in inert and not bool(m.any())]
     del before
     # a bf16 leaf moves only where lr x its update passes half a bf16 ulp:
     # the norm gains, all 1.0 (ulp 2^-7), do not at the warm-up's rates;
@@ -2090,6 +2128,7 @@ def train_whole(base) -> dict:
             "step_ms": step_ms, "step_ms_median_after_first": tail,
             "tokens_per_s": TRAIN_SEQ / tail * 1e3, "peak_gb": peak_gb,
             "launches": launches, "unmoved_leaves": len(still),
+            "inert_leaves": len(inert),
             "unmoved_leaf_kinds": sorted({k.rsplit(".", 1)[-1]
                                           for k in still}),
             "leaves": len(params), "split": split,
@@ -2171,7 +2210,7 @@ def train_f32_vs_cpu(base) -> dict:
         params = dict(model.named_parameters())
         for p in params.values():
             p.requires_grad_(True)
-        loss = model_loss(cfg, model, batch_to(b, dev))
+        loss = model_loss(cfg, model, batch_to(b, dev), scan_impl="chunked")
         g = torch.autograd.grad(loss, list(params.values()))
         for p in params.values():
             p.requires_grad_(False)
@@ -2220,6 +2259,245 @@ def train_path() -> dict:
             raise AssertionError(f"the training phase launched {launches}")
     finally:
         torch.use_deterministic_algorithms(False)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# 18. the mesh and roofline tooling
+# --------------------------------------------------------------------------- #
+
+#: phase 18(a)'s dry runs at full size: (arch, shape, mesh); each traces one
+#: step on fake ranks of the (32, 8) or (2, 32, 8) mesh on the host's CPU
+DRYRUNS = [("gemma3-4b", "train_4k", "single"),
+           ("falcon-mamba-7b", "prefill_32k", "single"),
+           ("gemma3-4b", "train_4k", "multi")]
+DRYRUN_TIMEOUT = 900
+CARD_BYTES = 80e9
+#: phase 18(c)'s depth: one local:global period of gemma3-4b at full width
+DTENSOR_LAYERS = 6
+#: phase 17's hand-worked bound of the gemma3-4b train step (PERF.md §5)
+TRAIN_HAND_BOUND_MS = 49.58
+
+
+def start_dryruns(out: Path) -> dict:
+    """Phase 18(a): ``python -m repro_torch.launch.dryrun`` for each of
+    DRYRUNS, one subprocess each, all started at once in the background
+    (they run on the host's CPU and touch nothing on the card but a
+    context); their records and logs land in ``out``.  Every process is
+    stopped at exit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for arch, shape, mesh in DRYRUNS:
+        with open(out / f"{arch}_{shape}_{mesh}.log", "w") as log:
+            procs[(arch, shape, mesh)] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--device", "cuda",
+                 "--out", str(out)], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+    atexit.register(lambda: [p.kill() for p in procs.values()
+                             if p.poll() is None])
+    return procs
+
+
+def collect_dryruns(procs: dict, out: Path, started: float) -> dict:
+    """Phase 18(a)'s records: each dry run must exit 0 with ``status:
+    ok``, positive flops and per-device argument bytes under the card's
+    80 GB.  Returns, per cell, the roofline terms and the counts."""
+    recs = {}
+    for (arch, shape, mesh), p in procs.items():
+        left = DRYRUN_TIMEOUT - (time.perf_counter() - started)
+        try:
+            rc = p.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = None
+        path = out / f"{arch}_{shape}_{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if rc != 0 or rec.get("status") != "ok" \
+                or not rec["loop_aware"]["flops_per_device"] > 0 \
+                or not rec["memory"]["argument_bytes"] < CARD_BYTES:
+            log = (out / f"{arch}_{shape}_{mesh}.log").read_text()
+            raise AssertionError(f"dry run {arch} {shape} {mesh}: exit "
+                                 f"{rc}, {rec.get('traceback', log)[-3000:]}")
+        recs[f"{arch} {shape} {rec['mesh']}"] = {
+            key: rec[key] for key in (
+                "n_chips", "fsdp", "trace_s", "roofline", "loop_aware",
+                "memory", "collective_link_bytes_by_axis",
+                "model_flops_per_device", "useful_flops_ratio")}
+    return recs
+
+
+def _median_ms(fn, reps: int = 3) -> list:
+    """``fn()``'s host ms, synchronised, ``reps`` times."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def oracle_vs_card(base, seed: int, **step_kw) -> dict:
+    """Phase 18(b), one model: ``base`` whole in bf16, one prefill of
+    PROMPT tokens (B = 1) through ``make_prefill_step(**step_kw)``, priced
+    by ``RooflineOracle.add_module`` at the H100's peaks (the counter runs
+    the prefill on the card and counts its ops), then the same prefill
+    timed.  The measured time must be at or above the bound: a card that
+    beats it means the count is wrong."""
+    cfg, model, _ = full_width(base, base.n_layers, seed=seed)
+    batch = {"tokens": session_prompt("s0", cfg.vocab)}
+    step = make_prefill_step(cfg, **step_kw)
+    oracle = RooflineOracle(peak_flops_s=PEAK_FLOPS_BF16,
+                            peak_bytes_s=HBM_BW)
+    with OpCounter() as counter:  # the oracle's own counts, to print
+        bound_ms = oracle.add_module(cfg.name, step, model, batch) * 1e3
+    counts = counter.counts()
+    times = _median_ms(lambda: step(model, batch))
+    measured = statistics.median(times)
+    if not min(times) >= bound_ms:
+        raise AssertionError(f"{cfg.name} prefill: {times} ms, below the "
+                             f"oracle's bound {bound_ms} ms {counts}")
+    del model
+    return {"model": cfg.name, "layers": cfg.n_layers, "tokens": PROMPT,
+            "step": {k: v for k, v in step_kw.items()}, "counts": counts,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if counts["flops"] / PEAK_FLOPS_BF16
+            >= counts["bytes"] / HBM_BW else "bytes",
+            "ms": times, "ms_over_bound": measured / bound_ms}
+
+
+def train_step_counted_bound(base) -> dict:
+    """Phase 17's gemma3-4b train step (B = 1, S = TRAIN_SEQ, no remat,
+    AdamW's defaults) counted on the ``meta`` device (nothing runs) and
+    priced at the H100's peaks, beside the hand-worked bound."""
+    cfg = dataclasses.replace(base, remat=TRAIN_REMAT)
+    model = params_shape(cfg)
+    ocfg = adamw.AdamWConfig()
+    opt = adamw.init(ocfg, dict(model.named_parameters()))
+    ids = torch.zeros((1, TRAIN_SEQ), dtype=torch.int64, device="meta")
+    oracle = RooflineOracle(peak_flops_s=PEAK_FLOPS_BF16,
+                            peak_bytes_s=HBM_BW)
+    _, counts = count(make_train_step(cfg, ocfg), model, opt,
+                      {"tokens": ids, "labels": ids})
+    return {"model": cfg.name, "batch": [1, TRAIN_SEQ], "counts": counts,
+            "counted_bound_ms": oracle.add_counts(
+                "train", counts["flops"], counts["bytes"]) * 1e3,
+            "hand_worked_bound_ms": TRAIN_HAND_BOUND_MS}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dtensor_prefill(base) -> dict:
+    """Phase 18(c): a one-rank NCCL process group, a (1, 1) ``DeviceMesh``
+    on the card, ``base`` with DTENSOR_LAYERS layers at full width (bf16):
+    one prefill of PROMPT tokens with its parameters and batch distributed
+    by the specs and run under the activation rules, against the same
+    prefill with plain tensors and no rules: the logits bit for bit (under
+    deterministic algorithms)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg, model, _ = full_width(base, DTENSOR_LAYERS, seed=23)
+        batch = {"tokens": session_prompt("s1", cfg.vocab)}
+        step = make_prefill_step(cfg)
+        want = step(model, batch)
+        pspecs = sh.param_specs(dict(model.named_parameters()), mesh,
+                                fsdp=False)
+        for name, p in list(model.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner), leaf, torch.nn.Parameter(
+                distribute_tensor(p, mesh, sh.to_placements(pspecs[name],
+                                                            mesh)),
+                requires_grad=False))
+        bspec = sh.batch_specs(batch, mesh, batch=1)["tokens"]
+        dbatch = {"tokens": distribute_tensor(
+            batch["tokens"], mesh, sh.to_placements(bspec, mesh))}
+        with sharding_rules(sh.activation_rules(cfg, mesh, batch=1)), \
+                implicit_replication():
+            got = step(model, dbatch).full_tensor()
+        equal = torch.equal(got, want)
+        if not equal:
+            raise AssertionError(f"{cfg.name} ({cfg.n_layers} layers) on a "
+                                 f"(1, 1) mesh: logits differ by "
+                                 f"{float((got - want).abs().max())}")
+        return {"model": cfg.name, "layers": cfg.n_layers, "mesh": [1, 1],
+                "backend": "nccl", "logits": list(got.shape),
+                "bit_identical": equal}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------- #
+# 19. training of the ssm and hybrid families
+# --------------------------------------------------------------------------- #
+
+#: falcon-mamba-7b's depth in phase 19(a).  Whole, its 7.27 B parameters at
+#: 12 bytes (bf16 weights and gradients, float32 moments) are 87 GB, over
+#: the card's 80 GB.  A layer holds 105.3 M parameters (1.26 GB of state);
+#: the embedding and head 0.53 B (6.4 GB); the recompute of one layer's
+#: chunked scan (4 chunks of [1, 256, 8192, 16] float32 intermediates and
+#: their gradients) an estimated 15-20 GB.  A first run at 32 layers (3.90
+#: B parameters) peaked at 57.58 GB; each further layer adds 1.26 GB, so
+#: 40 layers (4.74 B parameters, 56.9 GB of state) peak near 67.7 GB and
+#: leave about 12 GB of the card.
+SSM_TRAIN_LAYERS = 40
+
+
+def jamba_full_width_finding(base) -> dict:
+    """Phase 19(c): jamba at full width does not train on one card.  Its
+    smallest full-width cut that holds a mamba layer is one attention and
+    one mamba layer (phase 15's 2 layers): their parameters at 8 bytes (the
+    least: bf16 weights, gradients and both moments) against 80 GB."""
+    cfg = dataclasses.replace(base, n_layers=2)
+    total, _ = param_counts(cfg)
+    return {"model": base.name, "layers": 2, "params_b": total / 1e9,
+            "state_gb_at_8_bytes": 8 * total / 1e9,
+            "fits": 8 * total < CARD_BYTES,
+            "finding": "waits for a multi-chip cell"}
+
+
+def ssm_train_path() -> dict:
+    """Phase 19, under ``torch.use_deterministic_algorithms(True)``:
+    falcon-mamba-7b at full width with SSM_TRAIN_LAYERS layers (bf16, B =
+    1, S = TRAIN_SEQ, ``remat="full"``) through :func:`train_whole`;
+    reduced falcon-mamba-7b and jamba in float32, card vs CPU
+    (:func:`train_f32_vs_cpu`); jamba's full-width finding.  No kernel may
+    launch: the scan kernel's counter stays at 0 throughout."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        for k in ALL_KERNELS:
+            k.launches = 0
+        out = {"whole": train_whole(FALCON_MAMBA_7B, SSM_TRAIN_LAYERS,
+                                    remat="full")}
+        gc.collect()
+        torch.cuda.empty_cache()
+        for base in (FALCON_MAMBA_7B, JAMBA_15_LARGE):
+            out[f"float32_vs_cpu {base.name}"] = train_f32_vs_cpu(base)
+        launches = {k.name: k.launches for k in ALL_KERNELS}
+        if any(launches.values()):
+            raise AssertionError(f"the ssm training phase launched "
+                                 f"{launches}")
+        out["launches"] = launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["jamba_full_width"] = jamba_full_width_finding(JAMBA_15_LARGE)
     return out
 
 
@@ -2927,6 +3205,13 @@ def main(argv=None) -> int:
                twin_secs["wave_s"] / WAVE * 1e6}
     print(f"end to end {tag}: {json.dumps(e2e)}", flush=True)
 
+    # 18(a), started here: the dry runs use the host's CPU alone, so they
+    # run beside phases 6-16 (after phase 5's host timings)
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    atexit.register(shutil.rmtree, dry_dir, ignore_errors=True)
+    dry_started = time.perf_counter()
+    dry_procs = start_dryruns(dry_dir)
+
     # 6. the serving path: gemma3-4b whole behind serve.Engine
     cfg = GEMMA3_4B
     serve_launches, main_err, main_f32, serving = serving_path(cfg)
@@ -3058,11 +3343,59 @@ def main(argv=None) -> int:
           f"position via the float32 flash kernel vs its plain version: "
           f"{json.dumps(ev['seamless_f32'])}", flush=True)
 
+    # the dry runs' records, before phase 17's peak of ~71 GB (each dry
+    # run holds a context on the card)
+    dry = collect_dryruns(dry_procs, dry_dir, dry_started)
+    dry_wall_s = time.perf_counter() - dry_started
+
     # 17. training: gemma3-4b whole, a 6-layer crash-restart, float32 card
     # vs cpu
     train = train_path()
     for name, t in train.items():
         print(f"training {tag}: {name}: {json.dumps(t)}", flush=True)
+
+    # 18. the mesh and roofline tooling: (a) the dry runs at full size, (b)
+    # the oracle's bound held against the card, (c) a (1, 1) DTensor mesh
+    t18 = time.perf_counter()
+    for cell, rec in dry.items():
+        r = rec["roofline"]
+        print(f"dry run: {cell} on {rec['n_chips']} fake ranks (--device "
+              f"cuda), traced in {rec['trace_s']} s: compute "
+              f"{r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}; "
+              f"{json.dumps(rec)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    oracle = {}
+    for base, seed, kw in ((GEMMA3_4B, 31, {}),
+                           (FALCON_MAMBA_7B, 32, {"scan_impl": "chunked"})):
+        oracle[base.name] = oracle_vs_card(base, seed, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"oracle vs card {tag}: {json.dumps(oracle[base.name])}",
+              flush=True)
+    tb = train_step_counted_bound(GEMMA3_4B)
+    print(f"oracle, phase 17's train step: counted bound "
+          f"{tb['counted_bound_ms']:.3f} ms against the hand-worked "
+          f"{tb['hand_worked_bound_ms']} ms (PERF.md §5); measured "
+          f"{train['whole']['step_ms_median_after_first']:.1f} ms {tag}: "
+          f"{json.dumps(tb)}", flush=True)
+    dtp = dtensor_prefill(GEMMA3_4B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"DTensor prefill: {json.dumps(dtp)}", flush=True)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s here; the dry runs "
+          f"(traced in {[rec['trace_s'] for rec in dry.values()]} s) ran "
+          f"beside phases 6-16 and were collected {dry_wall_s:.1f} s after "
+          "they started", flush=True)
+
+    # 19. training of the ssm and hybrid families
+    t19 = time.perf_counter()
+    ssm_train = ssm_train_path()
+    for name, t in ssm_train.items():
+        print(f"ssm training {tag}: {name}: {json.dumps(t)}", flush=True)
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
 
     rows = []
     for k in KERNELS:
@@ -3151,6 +3484,7 @@ def main(argv=None) -> int:
                      name: h["launches"][k.name]
                      for name, h in hybrid.items()},
                  "float32_full_width_launches": h32["launches"][k.name],
+                 "ssm_training_launches": ssm_train["launches"][k.name],
                  "d16384": {key: scan_wide[key] for key in (
                      "shape", "ms", "device_ms", "plain_ms", "bound_ms",
                      "bound_by")}})

@@ -9,7 +9,7 @@ arXiv 2407.14159):
 * the **cost calculus** (:mod:`repro.analysis.calculus`) — derives every
   tag's worst-case cold/warm-path latency and $-cost from the registry
   footprints, a pluggable service-time oracle (:mod:`repro.analysis.oracle`;
-  the roofline model in :mod:`repro.roofline.flops` is the oracle for model
+  the roofline model in :mod:`repro_torch.roofline.flops` is the oracle for model
   functions) and the warm pool's lifecycle constants, and checks the
   per-block ``cost:`` budgets (``over-budget`` diagnostics);
 * the **reachability pass** (:mod:`repro.analysis.reach`) — given a concrete

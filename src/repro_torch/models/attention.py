@@ -262,3 +262,44 @@ def ring_slot_positions(pos: int, window: int, device=None):
     s = torch.arange(window, dtype=torch.int32, device=device)
     p = pos - torch.remainder(pos - s, window)
     return torch.where(p >= 0, p, torch.full_like(p, 2 ** 30))
+
+
+def attention_on_shards(q, k, v, q_pos, kv_pos, **kw):
+    """:func:`attention` (``kw`` its keywords).  On plain tensors, the call
+    itself.  On DTensors (the dry run's sharded step) DTensor has no
+    sharding rule for the chunked paths' grouped products, so this is the
+    explicit choice: each rank runs :func:`attention` on its own batch rows
+    (the mesh's data axes) and q heads (the model axis), with the kv heads
+    those q heads read, under ``local_map``; q, k and v are redistributed
+    to that layout first (k and v whole over the model axis)."""
+    from repro_torch.sharding.ctx import by_axis, data_model_sizes, is_dtensor
+
+    if not is_dtensor(q):
+        return attention(q, k, v, q_pos, kv_pos, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    B, _, H, _ = q.shape
+    K = k.shape[2]
+    n_data, m = data_model_sizes(mesh)
+    by_head = m > 1 and H % m == 0
+    G, Hl = H // K, H // m
+    if by_head and Hl % G and G % Hl:
+        raise ValueError(f"{H} q heads over {m} ranks split the {K} kv "
+                         "heads' groups")
+    batch = Shard(0) if B % n_data == 0 else Replicate()
+    q_pl = by_axis(mesh, batch, Shard(2) if by_head else Replicate())
+    kv_pl = by_axis(mesh, batch, Replicate())
+
+    def local(q, k, v, q_pos, kv_pos):
+        if by_head:  # the kv heads of this rank's q heads
+            r = mesh.get_local_rank("model")
+            lo, hi = r * Hl // G, ((r + 1) * Hl - 1) // G + 1
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        return attention(q, k, v, q_pos, kv_pos, **kw)
+
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl, None, None),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, q_pos, kv_pos)

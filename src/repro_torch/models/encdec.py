@@ -20,8 +20,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.ctx import shard, unflatten
 
-from .attention import attention, cache_insert, decode_attention
+from .attention import (attention_on_shards, cache_insert,
+                        decode_attention)
 from .layers import MLP, Embed, Norm, apply_rope, dtype_of, normal_param
 from .transformer import Attention, lm_loss, remat
 
@@ -98,10 +100,11 @@ def _enc_layer(cfg: ModelConfig, layer: EncLayer, x, positions, impl):
     q, k, v = layer.attn.qkv(layer.ln1(x))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    y = attention(q, k, v, positions, positions, causal=False, impl=impl,
-                  chunk=cfg.attn_chunk)
+    y = attention_on_shards(q, k, v, positions, positions, causal=False,
+                            impl=impl, chunk=cfg.attn_chunk)
     x = x + y.reshape(B, S, -1) @ layer.attn.wo
-    return x + layer.mlp(layer.ln2(x))
+    x = shard(x, "act_btd")
+    return shard(x + layer.mlp(layer.ln2(x)), "act_btd")
 
 
 def encode(cfg: ModelConfig, model: EncDec, frames, *, impl=None):
@@ -109,6 +112,7 @@ def encode(cfg: ModelConfig, model: EncDec, frames, *, impl=None):
     impl = impl or cfg.attn_impl
     x = frames.to(dtype_of(cfg.dtype)) @ model.frontend_proj
     positions = _positions(x.shape[1], x.device)
+    x = shard(x, "act_btd")
     for layer in model.enc:
         x = remat(cfg, _enc_layer, cfg, layer, x, positions, impl)
     return model.enc_norm(x)
@@ -120,10 +124,9 @@ def encode(cfg: ModelConfig, model: EncDec, frames, *, impl=None):
 
 
 def _cross_kv(cfg: ModelConfig, layer: DecLayer, enc_out):
-    B, Se, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    return ((enc_out @ layer.cross.wk).reshape(B, Se, cfg.n_kv_heads, hd),
-            (enc_out @ layer.cross.wv).reshape(B, Se, cfg.n_kv_heads, hd))
+    return (unflatten(enc_out @ layer.cross.wk, -1, (cfg.n_kv_heads, hd)),
+            unflatten(enc_out @ layer.cross.wv, -1, (cfg.n_kv_heads, hd)))
 
 
 def _dec_layer(cfg: ModelConfig, layer: DecLayer, x, enc_out, positions,
@@ -138,8 +141,9 @@ def _dec_layer(cfg: ModelConfig, layer: DecLayer, x, enc_out, positions,
     if lc is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        y = attention(q, k, v, positions, positions, causal=True, impl=impl,
-                      chunk=cfg.attn_chunk)
+        y = attention_on_shards(q, k, v, positions, positions,
+                                causal=True, impl=impl,
+                                chunk=cfg.attn_chunk)
     else:
         posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, posv, cfg.rope_theta)
@@ -148,17 +152,18 @@ def _dec_layer(cfg: ModelConfig, layer: DecLayer, x, enc_out, positions,
         y = decode_attention(q, kc, vc, pos)
     x = x + y.reshape(B, S, -1) @ layer.attn.wo
 
-    cq = (layer.ln2(x) @ layer.cross.wq).reshape(B, S, cfg.n_heads, hd)
+    cq = unflatten(layer.ln2(x) @ layer.cross.wq, -1, (cfg.n_heads, hd))
     if lc is None:
         ck, cv = _cross_kv(cfg, layer, enc_out)
-        y = attention(cq, ck, cv, positions,
-                      _positions(ck.shape[1], x.device), causal=False,
-                      impl=impl, chunk=cfg.attn_chunk)
+        y = attention_on_shards(cq, ck, cv, positions,
+                                _positions(ck.shape[1], x.device),
+                                causal=False, impl=impl,
+                                chunk=cfg.attn_chunk)
     else:
         Se = lc["cross_k"].shape[1]
         y = decode_attention(cq, lc["cross_k"], lc["cross_v"], Se - 1)
     x = x + y.reshape(B, S, -1) @ layer.cross.wo
-    return x + layer.mlp(layer.ln3(x))
+    return shard(x + layer.mlp(layer.ln3(x)), "act_btd")
 
 
 def decode_hidden(cfg: ModelConfig, model: EncDec, tokens, enc_out, *,
@@ -227,5 +232,5 @@ def encdec_decode_step(cfg: ModelConfig, model: EncDec, cache, token):
     for layer, lc in zip(model.dec, cache["layers"]):
         x = _dec_layer(cfg, layer, x, None, None, "direct", pos=pos, lc=lc)
     x = model.final_norm(x)
-    logits = (x @ model.lm_head).float()[:, 0]
+    logits = shard((x @ model.lm_head).float()[:, 0], "logits_bv")
     return logits, {**cache, "pos": pos + 1}

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.ctx import is_dtensor
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -153,5 +155,29 @@ class Embed(nn.Module):
                                 device=device, scale=1.0)
 
     def forward(self, tokens):
+        if is_dtensor(self.tok):
+            return lookup_on_shards(self.tok, tokens)
         return self.tok[tokens]
+
+
+def lookup_on_shards(tok, tokens):
+    """``tok[tokens]`` for a DTensor table (the dry run's sharded step).
+    DTensor's rules for a lookup into a vocab-sharded table fail in the
+    backward (an index with a partial gradient; ``embedding``'s masked
+    partial against a plain one), so this is the explicit choice: the
+    table is gathered whole and each rank looks up its own rows of
+    ``tokens`` under ``local_map``; the table's gradient is a partial sum
+    over the axes that split the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = tok.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    rows = tuple(tokens.placements) if is_dtensor(tokens) else whole
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in rows)
+    return local_map(lambda t, i: t[i], out_placements=list(rows),
+                     in_placements=(whole, rows),
+                     in_grad_placements=(grad, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(tok, tokens)
 

@@ -26,14 +26,20 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     return tf.init_lm(cfg, generator, dev)
 
 
-def model_forward(cfg: ModelConfig, model, batch, *, impl=None):
+def model_forward(cfg: ModelConfig, model, batch, *, impl=None,
+                  scan_impl: str = "kernel"):
+    """Final hidden states.  ``impl`` picks the attention path,
+    ``scan_impl`` the mamba layers' scan: ``"kernel"`` (serving) or
+    ``"chunked"``, the differentiable one (training); the enc-dec family
+    has no mamba layer."""
     if cfg.family == "encdec":
         return ed.encdec_forward(cfg, model, batch, impl=impl)
-    return tf.lm_forward(cfg, model, batch, impl=impl)
+    return tf.lm_forward(cfg, model, batch, impl=impl, scan_impl=scan_impl)
 
 
-def model_loss(cfg: ModelConfig, model, batch, *, impl=None):
-    hidden = model_forward(cfg, model, batch, impl=impl)
+def model_loss(cfg: ModelConfig, model, batch, *, impl=None,
+               scan_impl: str = "kernel"):
+    hidden = model_forward(cfg, model, batch, impl=impl, scan_impl=scan_impl)
     labels = batch["labels"]
     if cfg.frontend == "vision":
         hidden = hidden[:, -labels.shape[1]:]  # drop patch positions
@@ -60,3 +66,11 @@ def model_flops_per_token(cfg: ModelConfig) -> float:
     """MODEL_FLOPS = 6 * N_active per token (attention flops excluded)."""
     _, active = param_counts(cfg)
     return 6.0 * active
+
+
+def params_shape(cfg: ModelConfig):
+    """The model built on the ``meta`` device: every parameter's name,
+    shape and dtype, nothing allocated (for the dry run)."""
+    if cfg.family == "encdec":
+        return ed.EncDec(cfg, generator=None, device="meta")
+    return tf.LM(cfg, generator=None, device="meta")

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoESpec
+from repro_torch.sharding.ctx import shard, unflatten
 
 from .layers import normal_param
 
@@ -68,7 +69,8 @@ def moe_ffn(moe: MoE, x, spec: MoESpec, mlp_type: str):
     if pad:
         xf = F.pad(xf, (0, 0, 0, pad))
     G = xf.shape[0] // g
-    xg = xf.reshape(G, g, D)
+    xg = unflatten(xf, 0, (G, g))
+    xg = shard(xg, "moe_tokens")  # [G('data'), n, D]
 
     E, k = spec.n_experts, spec.top_k
     cap = _capacity(spec, g)
@@ -95,20 +97,64 @@ def moe_ffn(moe: MoE, x, spec: MoESpec, mlp_type: str):
         dispatch = dispatch + sel.to(x.dtype)
         combine = combine + sel * top_p[..., j][..., None, None]
 
-    # gather tokens into expert buffers: [G, E, cap, D]
-    expert_in = torch.einsum("gnec,gnd->gecd", dispatch, xg)
-    if mlp_type == "swiglu":
-        gate = torch.einsum("gecd,edf->gecf", expert_in, moe.w_gate)
-        up = torch.einsum("gecd,edf->gecf", expert_in, moe.w_up)
-        h = F.silu(gate.float()).to(x.dtype) * up
-    else:
-        h = F.gelu(torch.einsum("gecd,edf->gecf", expert_in,
-                                moe.w_up).float(),
-                   approximate="tanh").to(x.dtype)
-    expert_out = torch.einsum("gecf,efd->gecd", h, moe.w_down)
+    dispatch = shard(dispatch, "moe_dispatch")
+    combine = shard(combine, "moe_dispatch")
 
-    out = torch.einsum("gnec,gecd->gnd", combine.to(x.dtype), expert_out)
+    weights = [moe.w_up, moe.w_down]
+    if mlp_type == "swiglu":
+        weights.append(moe.w_gate)
+    out = experts_on_shards(dispatch, combine, xg, *weights,
+                            mlp_type=mlp_type)
     out = out.reshape(-1, D)
     if pad:
         out = out[:N]
     return out.reshape(B, S, D)
+
+
+def _experts(dispatch, combine, xg, w_up, w_down, w_gate=None, *,
+             mlp_type: str):
+    """The expert FFN on dispatched tokens: [G, n, D] out."""
+    # gather tokens into expert buffers: [G, E, cap, D]
+    expert_in = torch.einsum("gnec,gnd->gecd", dispatch, xg)
+    expert_in = shard(expert_in, "moe_expert_in")
+    if mlp_type == "swiglu":
+        gate = torch.einsum("gecd,edf->gecf", expert_in, w_gate)
+        up = torch.einsum("gecd,edf->gecf", expert_in, w_up)
+        h = F.silu(gate.float()).to(xg.dtype) * up
+    else:
+        h = F.gelu(torch.einsum("gecd,edf->gecf", expert_in,
+                                w_up).float(),
+                   approximate="tanh").to(xg.dtype)
+    expert_out = torch.einsum("gecf,efd->gecd", h, w_down)
+    expert_out = shard(expert_out, "moe_expert_in")
+    return torch.einsum("gnec,gecd->gnd", combine.to(xg.dtype), expert_out)
+
+
+def experts_on_shards(dispatch, combine, xg, *weights, mlp_type: str):
+    """:func:`_experts`.  On plain tensors, the call itself.  On DTensors
+    (the dry run's sharded step) the explicit choice where DTensor's
+    backward of these einsums views non-contiguous local gradients: each
+    rank runs its own groups (the data axes) through its own experts (the
+    model axis) under ``local_map``, the weights whole over the data axes
+    (the FSDP gather), and the per-expert outputs summed over the model
+    axis (a ``Partial`` result)."""
+    from repro_torch.sharding.ctx import by_axis, data_model_sizes, is_dtensor
+
+    if not is_dtensor(xg):
+        return _experts(dispatch, combine, xg, *weights, mlp_type=mlp_type)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xg.device_mesh
+    n_data, m = data_model_sizes(mesh)
+    group = Shard(0) if xg.shape[0] % n_data == 0 else Replicate()
+    by_expert = m > 1 and dispatch.shape[2] % m == 0
+    sel = by_axis(mesh, group, Shard(2) if by_expert else Replicate())
+    rows = by_axis(mesh, group, Replicate())
+    w_pl = by_axis(mesh, Replicate(), Shard(0) if by_expert else Replicate())
+    out = by_axis(mesh, group, Partial() if by_expert else Replicate())
+    return local_map(
+        lambda *t: _experts(*t, mlp_type=mlp_type), out_placements=list(out),
+        in_placements=(sel, sel, rows) + (w_pl,) * len(weights),
+        device_mesh=mesh, redistribute_inputs=True)(
+        dispatch, combine, xg, *weights)

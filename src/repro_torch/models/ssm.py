@@ -1,12 +1,22 @@
 """Mamba-1 selective state-space block (the falcon-mamba substrate).
 
-Prefill runs the selective scan through
-:func:`repro_torch.kernels.mamba_scan.selective_scan`: the hand-written
-kernel on the card, its plain version on the CPU.  The reference has a
-chunked and an unchunked associative scan in JAX; both compute the same
-recurrence, so the port has one path.  The D skip, the ``silu(z)`` gate,
-the cast to the model's dtype and ``out_proj`` stay outside the kernel, as
-in the reference.  Decode steps the recurrence once in plain PyTorch.
+Two scans compute the same recurrence, and the caller picks one
+(``scan_impl``):
+
+* ``"kernel"`` (serving: prefill) — :func:`repro_torch.kernels.mamba_scan.
+  selective_scan`: the hand-written kernel on the card, its plain version on
+  the CPU.  It has no backward, and its function is float32;
+* ``"chunked"`` (training) — the reference's differentiable scan: an
+  associative scan over the whole sequence when ``chunk <= 0`` or
+  ``chunk >= S``, else chunks of ``chunk`` steps (the sequence zero-padded
+  to a multiple) with the ``[B, di, N]`` state carried across them and
+  ``abar`` / ``bx`` built per chunk, the intermediates in ``scan_dtype``.
+  The associative scan is the reference's ``jax.lax.associative_scan``
+  recursion, step for step, so both combine in the same order.
+
+The D skip, the ``silu(z)`` gate, the cast to the model's dtype and
+``out_proj`` stay outside the scan, as in the reference.  Decode steps the
+recurrence once in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -20,7 +30,9 @@ from torch import nn
 from repro_torch.configs.base import SSMSpec
 from repro_torch.kernels import mamba_scan as ms
 
-from .layers import const_param, normal_param
+from repro_torch.sharding.ctx import shard, sum_partials
+
+from .layers import const_param, dtype_of, normal_param
 
 
 class Mamba(nn.Module):
@@ -79,7 +91,13 @@ def _ssm_inputs(m: Mamba, x, spec: SSMSpec, conv_state=None):
     xr, z = (x @ m.in_proj).chunk(2, dim=-1)
     xc, new_conv = causal_conv(xr, m.conv_w, m.conv_b, conv_state)
     xc = F.silu(xc.float()).to(x.dtype)
-    dt_raw, b_ssm, c_ssm = (xc @ m.x_proj).split([dtr, N, N], dim=-1)
+    if conv_state is None:  # prefill / train, where the reference constrains
+        xc = shard(xc, "act_bti")
+    # x_proj contracts the channels, which the model axis splits: its
+    # partial sums are reduced before dt_b (split like the channels) is
+    # added to their product with dt_w
+    proj = sum_partials(xc @ m.x_proj)
+    dt_raw, b_ssm, c_ssm = proj.split([dtr, N, N], dim=-1)
     # softplus: the reference's logaddexp(x, 0); torch's thresholds at 20,
     # where the two differ by less than 2e-9
     dt = F.softplus((dt_raw @ m.dt_w).float() + m.dt_b.float())
@@ -87,17 +105,140 @@ def _ssm_inputs(m: Mamba, x, spec: SSMSpec, conv_state=None):
     return xc, z, dt, b_ssm, c_ssm, a, new_conv
 
 
-def mamba_forward(m: Mamba, x, spec: SSMSpec, *,
-                  scan_dtype: str = "float32"):
-    """x [B, S, D] -> [B, S, D] (prefill).  The scan runs in float32; the
-    reference's bfloat16 scan intermediates are not ported."""
-    if scan_dtype != "float32":
-        raise NotImplementedError(
-            f"ssm_scan_dtype={scan_dtype!r} is not ported: the port's scan "
-            "runs in float32 (ROADMAP.md, Queue 1)")
+def _combine(left, right):
+    """The scan's operator on (a, b) pairs: h -> a2 (a1 h + b1) + b2."""
+    a1, b1 = left
+    a2, b2 = right
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even, odd):
+    """even[0], odd[0], even[1], ... along dim 1 (``len(even)`` is
+    ``len(odd)`` or one more)."""
+    n = odd.shape[1]
+    out = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    if even.shape[1] > n:
+        out = torch.cat([out, even[:, n:]], dim=1)
+    return out
+
+
+def associative_scan(a, b):
+    """Inclusive scan of the pairs ``(a, b)`` along dim 1 under
+    :func:`_combine`: ``jax.lax.associative_scan``'s recursion (combine
+    adjacent pairs, scan the halves, fill in the even positions), so the
+    products are formed in the same order as the reference's."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd = associative_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+                                     (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        even = _combine((odd[0][:, :-1], odd[1][:, :-1]),
+                        (a[:, 2::2], b[:, 2::2]))
+    else:
+        even = _combine(odd, (a[:, 2::2], b[:, 2::2]))
+    even = (torch.cat([a[:, :1], even[0]], dim=1),
+            torch.cat([b[:, :1], even[1]], dim=1))
+    return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
+
+
+def _ssm_scan_chunked(chunks, h0):
+    """h_t = abar_t * h_{t-1} + bx_t ;  y_t = h_t · c_t, chunk by chunk.
+
+    ``chunks`` yields ``(abar [B,cl,di,N], bx [B,cl,di,N], c [B,cl,N])``,
+    built lazily per chunk by the caller; the state ``h0`` [B,di,N] is
+    carried across them.  Returns (the last state, y [B,S,di] float32)."""
+    h, ys = h0, []
+    for ab, bxc, cc in chunks:
+        # prefix transforms within the chunk
+        a_pref, b_pref = associative_scan(ab, bxc)
+        h_t = a_pref * h[:, None] + b_pref  # [B, cl, di, N]
+        ys.append(torch.einsum("bldn,bln->bld", h_t.float(), cc.float()))
+        h = h_t[:, -1]
+    return h, torch.cat(ys, dim=1)
+
+
+def _scan_chunked(xc, dt, b_ssm, c_ssm, a, *, chunk: int, scan_dtype):
+    """The reference's differentiable scan: y [B, S, di] float32."""
+    B, S, di = xc.shape
+    sd = dtype_of(scan_dtype)
+    if chunk <= 0 or chunk >= S:
+        # unchunked: one associative scan over the whole sequence (h0 = 0)
+        dtc = dt.to(sd)
+        abar = torch.exp(dtc[..., None] * a.to(sd)).to(sd)
+        bx = (dtc * xc.to(sd))[..., None] * b_ssm.to(sd)[:, :, None, :]
+        _, h_t = associative_scan(abar, bx)
+        return torch.einsum("bsdn,bsn->bsd", h_t.float(),
+                            c_ssm.to(sd).float())
+    pad = (-S) % chunk
+
+    def padded(t):
+        return F.pad(t, (0, 0, 0, pad)) if pad else t
+
+    dt_p, xc_p = padded(dt).to(sd), padded(xc).to(sd)
+    b_p, c_p = padded(b_ssm).to(sd), padded(c_ssm).to(sd)
+    a = a.to(sd)
+
+    def chunks():  # abar / bx built per chunk keeps memory at chunk size
+        for j in range(0, S + pad, chunk):
+            dtj, xj, bj = (t[:, j:j + chunk] for t in (dt_p, xc_p, b_p))
+            abar = torch.exp(dtj[..., None] * a).to(sd)
+            bx = (dtj * xj)[..., None] * bj[:, :, None, :]
+            yield abar, bx, c_p[:, j:j + chunk]
+
+    h0 = torch.zeros((B, di, a.shape[-1]), dtype=sd, device=xc.device)
+    _, y = _ssm_scan_chunked(chunks(), h0)
+    return y[:, :S]
+
+
+def scan_on_shards(xc, dt, b_ssm, c_ssm, a, **kw):
+    """:func:`_scan_chunked` (``kw`` its keywords).  On plain tensors, the
+    call itself.  On DTensors (the dry run's sharded step) each rank scans
+    its own batch rows (the data axes) and channels (the model axis) under
+    ``local_map``: the recurrence never mixes rows or channels, so no rank
+    needs another's, and the scan's many small ops run on local tensors.
+    b and c are made whole over the model axis first."""
+    from repro_torch.sharding.ctx import by_axis, data_model_sizes, is_dtensor
+
+    if not is_dtensor(xc):
+        return _scan_chunked(xc, dt, b_ssm, c_ssm, a, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xc.device_mesh
+    n_data, m = data_model_sizes(mesh)
+    batch = Shard(0) if xc.shape[0] % n_data == 0 else Replicate()
+    by_chan = xc.shape[2] % m == 0
+    chan = by_axis(mesh, batch, Shard(2) if by_chan else Replicate())
+    rows = by_axis(mesh, batch, Replicate())
+    a_pl = by_axis(mesh, Replicate(), Shard(0) if by_chan else Replicate())
+    return local_map(
+        lambda *t: _scan_chunked(*t, **kw), out_placements=list(chan),
+        in_placements=(chan, chan, rows, rows, a_pl), device_mesh=mesh,
+        redistribute_inputs=True)(xc, dt, b_ssm, c_ssm, a)
+
+
+def mamba_forward(m: Mamba, x, spec: SSMSpec, *, scan_impl: str = "kernel",
+                  chunk: int = 256, scan_dtype: str = "float32"):
+    """x [B, S, D] -> [B, S, D] (prefill or train).  ``scan_impl`` picks
+    the scan (module docstring): ``"kernel"`` runs in float32 and refuses
+    another ``scan_dtype``; ``"chunked"`` takes ``chunk`` and
+    ``scan_dtype`` as the reference does."""
     xc, z, dt, b_ssm, c_ssm, a, _ = _ssm_inputs(m, x, spec)
-    y = ms.selective_scan(dt, xc, b_ssm, c_ssm, a)  # [B, S, di] f32
+    if scan_impl == "kernel":
+        if scan_dtype != "float32":
+            raise NotImplementedError(
+                f"ssm_scan_dtype={scan_dtype!r} on the scan kernel: its "
+                "function is float32; scan_impl='chunked' takes "
+                "bfloat16 intermediates")
+        y = ms.selective_scan(dt, xc, b_ssm, c_ssm, a)  # [B, S, di] f32
+    elif scan_impl == "chunked":
+        y = scan_on_shards(xc, dt, b_ssm, c_ssm, a, chunk=chunk,
+                           scan_dtype=scan_dtype)
+    else:
+        raise ValueError(f"unknown scan impl {scan_impl!r}")
     y = y + m.d_skip * xc.float()
+    # cast before out_proj: bf16 partial-sum all-reduces are half the traffic
     y = (y * F.silu(z.float())).to(x.dtype)
     return y @ m.out_proj
 

@@ -22,8 +22,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.ctx import shard, shards, unflatten
 
-from .attention import (attention, cache_insert, decode_attention,
+from .attention import (attention_on_shards, cache_insert, decode_attention,
                         decode_attention_buffered, ring_insert,
                         ring_slot_positions)
 from .layers import (MLP, Embed, Norm, apply_rope, dtype_of, normal_param,
@@ -65,9 +66,9 @@ class Attention(nn.Module):
         if self.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         hd = self.head_dim
-        return (q.reshape(B, S, self.n_heads, hd),
-                k.reshape(B, S, self.n_kv_heads, hd),
-                v.reshape(B, S, self.n_kv_heads, hd))
+        return (unflatten(q, -1, (self.n_heads, hd)),
+                unflatten(k, -1, (self.n_kv_heads, hd)),
+                unflatten(v, -1, (self.n_kv_heads, hd)))
 
 
 class Layer(nn.Module):
@@ -145,22 +146,33 @@ def _apply_ffn(cfg: ModelConfig, layer: Layer, h):
     return out
 
 
-def _apply_layer(cfg: ModelConfig, layer: Layer, x, positions, impl):
+def _apply_layer(cfg: ModelConfig, layer: Layer, x, positions, impl,
+                 scan_impl):
     h = layer.ln1(x)
     if layer.kind == "mamba":
-        x = x + mamba_forward(layer.ssm, h, cfg.ssm,
-                              scan_dtype=cfg.ssm_scan_dtype)
-        return x + _apply_ffn(cfg, layer, layer.ln2(x))
-    B, S, _ = h.shape
-    q, k, v = layer.attn.qkv(h)
-    theta = _rope_theta(cfg, layer.kind)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
-    window = cfg.sliding_window if layer.kind == "local" else None
-    y = attention(q, k, v, positions, positions, causal=True, window=window,
-                  impl=impl, chunk=cfg.attn_chunk, q_block=cfg.attn_q_block)
-    x = x + y.reshape(B, S, -1) @ layer.attn.wo
-    return x + _apply_ffn(cfg, layer, layer.ln2(x))
+        y = mamba_forward(layer.ssm, h, cfg.ssm, scan_impl=scan_impl,
+                          chunk=cfg.scan_chunk,
+                          scan_dtype=cfg.ssm_scan_dtype)
+    else:
+        B, S, _ = h.shape
+        q, k, v = layer.attn.qkv(h)
+        theta = _rope_theta(cfg, layer.kind)
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+        q = shard(q, "attn_q")
+        k = shard(k, "attn_kv")
+        v = shard(v, "attn_kv")
+        window = cfg.sliding_window if layer.kind == "local" else None
+        y = attention_on_shards(q, k, v, positions, positions, causal=True,
+                                window=window, impl=impl,
+                                chunk=cfg.attn_chunk,
+                                q_block=cfg.attn_q_block)
+        y = shard(y, "attn_out")
+        y = y.reshape(B, S, -1) @ layer.attn.wo
+    x = x + y
+    x = shard(x, "act_btd")
+    x = x + _apply_ffn(cfg, layer, layer.ln2(x))
+    return shard(x, "act_btd")
 
 
 def _input_embeds(cfg: ModelConfig, model: LM, batch):
@@ -188,13 +200,18 @@ def remat(cfg: ModelConfig, fn, *args):
     return fn(*args)
 
 
-def lm_forward(cfg: ModelConfig, model: LM, batch, *, impl=None):
-    """-> final hidden states [B, S_total, D]."""
+def lm_forward(cfg: ModelConfig, model: LM, batch, *, impl=None,
+               scan_impl: str = "kernel"):
+    """-> final hidden states [B, S_total, D].  ``impl`` picks the
+    attention path (``cfg.attn_impl`` unless given), ``scan_impl`` the
+    mamba layers' scan (``models/ssm.py``)."""
     impl = impl or cfg.attn_impl
     x = _input_embeds(cfg, model, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x = shard(x, "act_btd")
     for layer in model.layers:
-        x = remat(cfg, _apply_layer, cfg, layer, x, positions, impl)
+        x = remat(cfg, _apply_layer, cfg, layer, x, positions, impl,
+                  scan_impl)
     return model.final_norm(x)
 
 
@@ -208,22 +225,28 @@ def lm_loss(cfg: ModelConfig, model, hidden, labels):
     """Chunked cross-entropy: logits are made ``loss_chunk`` tokens at a
     time, in float32; labels below 0 weigh nothing.  The mean over the
     weighted tokens, as the reference's ``lm_loss`` (its padding of the
-    last chunk adds only weightless rows, so the port does not pad)."""
+    last chunk adds only weightless rows, so the port does not pad).  On a
+    DTensor whose tokens are split over data shards each chunk takes
+    ``loss_chunk`` tokens of every shard, so no chunk crosses a shard."""
     B, S, D = hidden.shape
     head = head_weights(cfg, model)
-    h = hidden.reshape(B * S, D)
-    y = labels.reshape(B * S)
-    chunk = min(cfg.loss_chunk, h.shape[0])
+    n = shards(hidden, 0)
+    h = hidden.reshape(n, B * S // n, D)
+    y = labels.reshape(n, B * S // n)
+    chunk = min(cfg.loss_chunk, h.shape[1])
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c0 in range(0, h.shape[0], chunk):
-        yc = y[c0:c0 + chunk]
-        logits = (h[c0:c0 + chunk] @ head).float()  # [chunk, V]
+    for c0 in range(0, h.shape[1], chunk):
+        yc = y[:, c0:c0 + chunk].reshape(-1)
+        logits = (h[:, c0:c0 + chunk] @ head).float()  # [n, chunk, V]
+        logits = shard(logits.reshape(yc.shape[0], -1), "logits")
         lse = torch.logsumexp(logits, dim=-1)
+        # the label's logit kept 2-D until the subtraction: DTensor's
+        # masked gather over a vocab-sharded row reduces only 2-D results
         correct = logits.gather(
-            -1, yc.clamp(0, cfg.vocab - 1).long()[:, None])[:, 0]
+            -1, yc.clamp(0, cfg.vocab - 1).long()[:, None])
         w = (yc >= 0).float()
-        tot = tot + ((lse - correct) * w).sum()
+        tot = tot + ((lse[:, None] - correct)[:, 0] * w).sum()
         cnt = cnt + w.sum()
     return tot / torch.clamp(cnt, min=1.0)
 
@@ -320,7 +343,8 @@ def lm_decode_step(cfg: ModelConfig, model: LM, cache, token):
         x = _decode_layer(cfg, layer, lc, x, pos, cache_len)
     new_cache = {**cache, "pos": pos + 1}
     x = model.final_norm(x)
-    return lm_logits(cfg, model, x)[:, 0], new_cache
+    logits = shard(lm_logits(cfg, model, x)[:, 0], "logits_bv")
+    return logits, new_cache
 
 
 def merge_decode_buffer(cfg: ModelConfig, cache):

@@ -4,7 +4,8 @@ Each returns a plain function over ``(model, ...)``.  The prefill and serve
 steps run under ``torch.no_grad()``.  The train step runs the loss through
 ``model_loss`` under autograd: no hand-written kernel has a backward (nor
 has any Pallas kernel of the JAX package), so attention goes through
-``cfg.attn_impl`` ("chunked" by default, as in the reference) and the
+``cfg.attn_impl`` ("chunked" by default, as in the reference), the mamba
+layers through the differentiable scan (``scan_impl="chunked"``), and the
 kernel entries refuse inputs that require grad.
 """
 from __future__ import annotations
@@ -20,11 +21,6 @@ from repro_torch.models.model import (model_decode_step, model_forward,
 from repro_torch.models.transformer import lm_logits
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import GradCompressor
-
-#: the families whose mixer runs the selective-scan kernel, which has no
-#: backward
-SCAN_FAMILIES = ("ssm", "hybrid")
-
 
 def batch_to(batch: Mapping, device) -> Dict[str, torch.Tensor]:
     """A batch of numpy arrays (``data.pipeline.make_batch``) as tensors on
@@ -44,6 +40,7 @@ def make_train_step(
     opt_cfg: adamw.AdamWConfig,
     *,
     impl: str = None,
+    scan_impl: str = "chunked",
     microbatches: int = 1,
     compressor: Optional[GradCompressor] = None,
 ) -> Callable:
@@ -57,19 +54,14 @@ def make_train_step(
     moments in place.  ``metrics``: ``loss``, ``grad_norm`` and ``lr`` as
     0-d float32 tensors.
 
-    The ssm and hybrid families raise ``NotImplementedError``: their mamba
-    layers run the scan kernel, which has no backward, and the reference's
-    differentiable jnp scan (with ``ssm_scan_dtype``) is not ported."""
-    if cfg.family in SCAN_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family} family is not ported: its mamba "
-            "layers run the forward-only selective-scan kernel; it needs "
-            "the reference's chunked / associative jnp scan as a "
-            "differentiable PyTorch path, with ssm_scan_dtype (ROADMAP.md, "
-            "Queue 1)")
+    The ssm and hybrid families' mamba layers take the differentiable scan
+    (``scan_impl="chunked"``: ``cfg.scan_chunk``, ``cfg.ssm_scan_dtype``),
+    as ``impl`` takes attention off the kernel; ``scan_impl="kernel"``
+    reaches the scan kernel, whose entry refuses inputs that require
+    grad."""
 
     def grads_of(model, params, batch):
-        loss = model_loss(cfg, model, batch, impl=impl)
+        loss = model_loss(cfg, model, batch, impl=impl, scan_impl=scan_impl)
         return loss, torch.autograd.grad(loss, list(params.values()))
 
     def train_step(model, opt_state, batch):
@@ -116,12 +108,16 @@ def make_train_step(
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, *, impl: str = None) -> Callable:
-    """(model, batch) -> last-position logits [B, vocab] (f32)."""
+def make_prefill_step(cfg: ModelConfig, *, impl: str = None,
+                      scan_impl: str = "kernel") -> Callable:
+    """(model, batch) -> last-position logits [B, vocab] (f32).  The mamba
+    layers run the scan kernel unless ``scan_impl`` asks for the
+    differentiable scan (as the reference's prefill runs its jnp scan)."""
 
     @torch.no_grad()
     def prefill_step(model, batch):
-        hidden = model_forward(cfg, model, batch, impl=impl)
+        hidden = model_forward(cfg, model, batch, impl=impl,
+                               scan_impl=scan_impl)
         return lm_logits(cfg, model, hidden[:, -1:])[:, 0]
 
     return prefill_step

@@ -53,7 +53,11 @@ def test_a_fresh_interpreter_loads_no_jax_and_no_reference_module():
         "repro_torch.forecast, repro_torch.models.moe, "
         "repro_torch.models.encdec, repro_torch.optim.adamw, "
         "repro_torch.optim.compress, repro_torch.checkpoint.manager, "
-        "repro_torch.data.pipeline, repro_torch.launch.train, chip_smoke\n"
+        "repro_torch.data.pipeline, repro_torch.launch.train, "
+        "repro_torch.roofline.hlo, repro_torch.roofline.flops, "
+        "repro_torch.sharding.specs, repro_torch.sharding.ctx, "
+        "repro_torch.launch.mesh, repro_torch.launch.inputs, "
+        "repro_torch.launch.dryrun, chip_smoke\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,

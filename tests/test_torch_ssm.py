@@ -8,7 +8,11 @@ prefill logits and decode steps from an empty cache, against the
 reference's chunked scan (``scan_chunk = 16``) and its unchunked one
 (``scan_chunk = 0``).  The port runs the scan kernel's plain version here.
 Everything is held to 1e-4 absolute: the same float32 maths, summed in
-another order.  Then the conversion of a bfloat16 model, which keeps the
+another order.  The differentiable scan (``scan_impl="chunked"``, the
+train path's) is held to the reference's ``mamba_forward`` on the same
+1e-4: chunked and unchunked, a sequence off the chunk (zero padding), and
+bfloat16 scan intermediates, which the port forms in the reference's
+combine order.  Then the conversion of a bfloat16 model, which keeps the
 reference's float32 ``a_log`` and ``d_skip``."""
 import dataclasses
 import functools
@@ -163,11 +167,39 @@ def test_the_block_goes_through_the_scan_wrapper(monkeypatch):
 
 
 def test_a_bfloat16_scan_is_not_ported():
+    """The scan kernel's function is float32: on the kernel path a
+    bfloat16 scan raises (the differentiable scan takes it, below)."""
     jcfg, tcfg, params, model = pair()
     x = torch.zeros((1, 5, tcfg.d_model))
     with pytest.raises(NotImplementedError, match="ssm_scan_dtype"):
         port_ssm.mamba_forward(model.layers[0].ssm, x, tcfg.ssm,
-                               scan_dtype="bfloat16")
+                               scan_impl="kernel", scan_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("S,chunk,scan_dtype", [
+    (48, 16, "float32"), (40, 0, "float32"), (37, 16, "float32"),
+    (48, 16, "bfloat16"), (40, 0, "bfloat16"), (37, 16, "bfloat16")],
+    ids=["chunked", "unchunked", "padded", "chunked-bf16", "unchunked-bf16",
+         "padded-bf16"])
+def test_the_differentiable_scan_equals_the_reference(S, chunk, scan_dtype):
+    """``scan_impl="chunked"`` against the reference's ``mamba_forward``
+    with the same ``chunk`` and ``scan_dtype``: chunks of 16, one scan
+    over the whole sequence (chunk 0), 37 steps padded to 48; and the
+    chunked and unchunked scans agree with each other."""
+    jcfg, tcfg, params, model = pair()
+    lp = jax.tree.map(lambda a: a[1], params["layers"][0]["ssm"])
+    x = np.random.default_rng(S).standard_normal((2, S, tcfg.d_model),
+                                                 dtype=np.float32)
+    want = jax_ssm.mamba_forward(lp, jnp.asarray(x), jcfg.ssm, chunk=chunk,
+                                 scan_dtype=jnp.dtype(scan_dtype))
+    run = functools.partial(port_ssm.mamba_forward, model.layers[1].ssm,
+                            torch.from_numpy(x), tcfg.ssm,
+                            scan_impl="chunked", scan_dtype=scan_dtype)
+    got = run(chunk=chunk)
+    assert got.shape == (2, S, tcfg.d_model)
+    assert close(want, got) < TOL
+    other = run(chunk=0 if chunk else 16)
+    assert float((got - other).abs().max()) < TOL
 
 
 def _prompt(cfg, B, S, seed):

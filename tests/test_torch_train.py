@@ -5,7 +5,9 @@ training driver.
 The first seven tests mirror ``tests/test_train_and_checkpoint.py`` on the
 port (reduced gemma3-4b, float32).  Then one train step on both packages
 from the same parameters (the reference's, carried across) and batch, for
-reduced gemma3-4b, qwen3-moe-30b-a3b, internvl2-76b and seamless-m4t:
+reduced gemma3-4b, qwen3-moe-30b-a3b, internvl2-76b, seamless-m4t,
+falcon-mamba-7b and jamba-1.5-large-398b (the mamba layers through the
+differentiable chunked scan, 6 chunks of 16 steps):
 loss and grad norm within 1e-5 relative, each parameter's gradient within
 1e-4 of that leaf's largest |g| (the same maths under two autodiffs, summed
 in another order).  ``adamw.update`` and ``GradCompressor.apply`` are held
@@ -208,7 +210,8 @@ def test_microbatch_grad_accumulation_matches():
 # --------------------------------------------------------------------------- #
 
 STEP_ARCHS = ("gemma3-4b", "qwen3-moe-30b-a3b", "internvl2-76b",
-              "seamless-m4t-large-v2")
+              "seamless-m4t-large-v2", "falcon-mamba-7b",
+              "jamba-1.5-large-398b")
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,7 +229,7 @@ def port_grads(tcfg, model, b):
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
-    loss = model_loss(tcfg, model, batch_to(b, "cpu"))
+    loss = model_loss(tcfg, model, batch_to(b, "cpu"), scan_impl="chunked")
     grads = torch.autograd.grad(loss, list(params.values()))
     return float(loss.detach()), dict(zip(params, grads))
 
@@ -262,9 +265,9 @@ def test_one_train_step_equals_the_reference(arch):
 
 def test_remat_gives_the_same_step():
     """``remat="full"`` (each layer under ``torch.utils.checkpoint``) gives
-    the same loss and parameters as no remat, bit for bit, on the dense and
-    the enc-dec stacks."""
-    for arch in ("gemma3-4b", "seamless-m4t-large-v2"):
+    the same loss and parameters as no remat, bit for bit, on the dense,
+    the enc-dec and the mamba stacks."""
+    for arch in ("gemma3-4b", "seamless-m4t-large-v2", "falcon-mamba-7b"):
         _, tcfg, tree, b = step_pair(arch)
         ocfg = adamw.AdamWConfig()
         out = []
@@ -395,12 +398,6 @@ def test_grad_compressor_equals_the_reference():
 # --------------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-1.5-large-398b"])
-def test_train_step_refuses_the_scan_families(arch):
-    with pytest.raises(NotImplementedError, match="differentiable"):
-        make_train_step(ARCHS[arch].reduced(), adamw.AdamWConfig())
-
-
 def test_the_kernel_entries_refuse_inputs_that_require_grad():
     g = torch.Generator().manual_seed(0)
     q = torch.randn((1, 8, 2, 64), generator=g)
@@ -423,23 +420,32 @@ def test_the_kernel_entries_refuse_inputs_that_require_grad():
 
 
 def test_a_train_step_never_reaches_a_kernel_entry(monkeypatch):
-    """The train path goes through ``cfg.attn_impl``, never the kernel
-    entries; asking it for flash raises rather than dropping the
-    gradient."""
-    cfg = tiny_cfg()
+    """The train path goes through ``cfg.attn_impl`` and the
+    differentiable scan, never the kernel entries; asking it for flash or
+    the scan kernel raises rather than dropping the gradient."""
 
     def boom(*a, **kw):
         raise AssertionError("a train step called a kernel entry")
 
     monkeypatch.setattr(fa, "flash_attention", boom)
+    monkeypatch.setattr(ms, "selective_scan", boom)
     ocfg = adamw.AdamWConfig()
-    model = fresh(cfg)
-    model, _, m = make_train_step(cfg, ocfg)(model, opt_init(ocfg, model),
-                                            batch(cfg, 2, 320, 0))
-    assert np.isfinite(float(m["loss"]))
+    runs = {}
+    for arch in ("gemma3-4b", "jamba-1.5-large-398b"):
+        cfg = dataclasses.replace(ARCHS[arch].reduced(), remat="none")
+        model = fresh(cfg)
+        model, _, m = make_train_step(cfg, ocfg)(
+            model, opt_init(ocfg, model), batch(cfg, 2, 320, 0))
+        assert np.isfinite(float(m["loss"]))
+        runs[arch] = cfg, model
     monkeypatch.undo()
+    cfg, model = runs["gemma3-4b"]
     with pytest.raises(RuntimeError, match="forward-only"):
         make_train_step(cfg, ocfg, impl="flash")(
+            model, opt_init(ocfg, model), batch(cfg, 2, 320, 0))
+    cfg, model = runs["jamba-1.5-large-398b"]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        make_train_step(cfg, ocfg, scan_impl="kernel")(
             model, opt_init(ocfg, model), batch(cfg, 2, 320, 0))
 
 
