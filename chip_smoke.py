@@ -107,7 +107,8 @@ Phases, one line each (every time beside the card's name and power limit):
    ticks of 512 same-tick arrivals through the wave batcher, untraced, one
    ``bulk_decide`` launch a wave; its records must equal the same trace
    decided one arrival at a time on the card, the ``device="cpu"`` run's
-   and the float64 twin's;
+   and the float64 twin's (both twins in processes of their own, beside
+   the card's runs);
 13. predictive trace — the forecast plug-in on the same cluster:
    ``benchmarks/coldstart.py``'s predictive column (its script, the
    ``predictive`` keep-alive over a 512 MB-a-worker pool, an
@@ -117,12 +118,13 @@ Phases, one line each (every time beside the card's name and power limit):
    replica, over a 1.25 s window of roots, stopped after the second
    planning epoch, decided one arrival at a time through
    ``affinity_valid``: its records, rng tail, pool metrics and planner
-   stats must equal the ``device="cpu"`` run's and the float64 twin's, some
+   stats must equal the ``device="cpu"`` run's and the float64 twin's
+   (each in a process of its own, beside the card's run), some
    epoch must prewarm, every prewarm and migration target must pass the
    port's scalar Listing-1 ``valid`` on the state it was planned on, and
    ``affinity_valid`` must launch once a decision; the same trace under the
-   ``affinity`` policy for its cold-start rate; the planner's host ms per
-   epoch;
+   ``affinity`` policy (on the CPU, beside it) for its cold-start rate;
+   the planner's host ms per epoch;
 14. MoE serving path — falcon-mamba-7b's weights freed, qwen3-moe-30b-a3b
    whole (48 layers, 128 experts, top-8, bf16, 60.2 GB, drawn on the card)
    behind the same engine, deployment, sessions, decodes and cell failure
@@ -164,7 +166,10 @@ Phases, one line each (every time beside the card's name and power limit):
    kernel launched: gemma3-4b whole in bf16, 4 ``make_train_step`` steps
    at B = 1, S = 1024 with AdamW's defaults on ``make_batch``'s batches
    (finite losses and grad norms, every parameter moved), the step split
-   into forward, backward and optimizer, its idle share and its bound; a
+   into forward, backward and optimizer, its idle share and its bound;
+   before the steps one step counted on ``meta`` with the same arguments
+   live, and each step's measured peak (``max_memory_allocated`` after a
+   reset right before it) within 5% of the counted peak; a
    6-layer full-width crash-restart through ``CheckpointManager``, losses
    and parameters bit-identical to the straight run; reduced gemma3-4b in
    float32, one step and its gradients on the card against the CPU;
@@ -173,12 +178,13 @@ Phases, one line each (every time beside the card's name and power limit):
    and run beside phases 6-16 on the host's CPU: gemma3-4b train_4k and
    falcon-mamba-7b prefill_32k on the (32, 8) mesh of 256 fake ranks,
    gemma3-4b train_4k on (2, 32, 8); each record ``status: ok``, positive
-   flops, per-device arguments under 80 GB, its compute, memory and
-   collective terms printed; (b) ``RooflineOracle.add_module`` at the
-   H100's peaks over one prefill of 4096 tokens (B = 1, bf16) of gemma3-4b
-   and of falcon-mamba-7b (its chunked scan), each timed after and held at
-   or above the bound; phase 17's train step counted on ``meta`` beside
-   its hand-worked bound; (c) a one-rank NCCL process group, a (1, 1)
+   flops, per-device arguments under 80 GB, the reference's memory keys
+   with a peak that holds the arguments, its compute, memory and
+   collective terms and its peak, temp and output GB a device printed;
+   (b) ``RooflineOracle.add_module`` at the H100's peaks over one prefill
+   of 4096 tokens (B = 1, bf16) of gemma3-4b and of falcon-mamba-7b (its
+   chunked scan), each timed after and held at or above the bound; phase 17's train step as counted on ``meta`` priced
+   beside its hand-worked bound; (c) a one-rank NCCL process group, a (1, 1)
    ``DeviceMesh``: gemma3-4b with 6 layers at full width, a prefill with
    DTensor parameters under the activation rules bit-identical to the
    plain one;
@@ -186,10 +192,12 @@ Phases, one line each (every time beside the card's name and power limit):
    launched (the scan kernel's counter stays 0): falcon-mamba-7b at full
    width with 40 of 64 layers (``SSM_TRAIN_LAYERS``), bf16, B = 1, S =
    1024, ``remat="full"``, 4 steps through the differentiable scan, as
-   phase 17; reduced falcon-mamba-7b and jamba in float32, card vs CPU;
-   jamba's full width printed as not fitting one card;
+   phase 17, its peak counted and checked as phase 17's; reduced
+   falcon-mamba-7b and jamba in float32, card vs CPU; jamba's full width
+   printed as not fitting one card;
 
-then a ``{"kernels": [...]}`` line, the card line, and the result line
+then the seconds each phase took, a ``{"kernels": [...]}`` line, the card
+line, and the result line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
 exits non-zero and prints no result line.
 """
@@ -260,8 +268,7 @@ from repro_torch.models.transformer import lm_logits  # noqa: E402
 from repro_torch.obs import Obs, validate_chrome_trace  # noqa: E402
 from repro_torch.platform import Platform  # noqa: E402
 from repro_torch.pool import StartCosts, WarmPool, make_policy  # noqa: E402
-from repro_torch.roofline.flops import (OpCounter,  # noqa: E402
-                                        count)
+from repro_torch.roofline.flops import OpCounter  # noqa: E402
 from repro_torch.sharding import specs as sh  # noqa: E402
 from repro_torch.sharding.ctx import sharding_rules  # noqa: E402
 from repro_torch.resilience import (HEAL_ZONE, KILL_ZONE,  # noqa: E402
@@ -2009,6 +2016,9 @@ TRAIN_REMAT = "none"
 #: read, p, m, v written
 UPDATE_BYTES = 2 + 2 + 4 + 4 + 2 + 4 + 4
 TRAIN_F32 = dict(batch=4, seq=256)
+#: a train step's peak counted on ``meta`` against the card's measured
+#: ``max_memory_allocated``: within 5% either way
+PEAK_TOL = 0.05
 
 
 def train_batch(cfg, B: int, S: int, step: int) -> dict:
@@ -2017,17 +2027,40 @@ def train_batch(cfg, B: int, S: int, step: int) -> dict:
 
 def train_steps(step, model, opt, batches):
     """Run ``step`` over ``batches``; returns the model, the optimizer
-    state, the losses, the grad norms and each step's ms (host clock,
-    synchronised)."""
-    losses, gnorms, ms = [], [], []
+    state, the losses, the grad norms, each step's ms (host clock,
+    synchronised) and each step's device memory: the bytes allocated
+    just before it and its peak (``max_memory_allocated`` after
+    ``reset_peak_memory_stats`` right before it)."""
+    losses, gnorms, ms, mem = [], [], [], []
     for b in batches:
         torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model, opt, m = step(model, opt, b)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
         ms.append((time.perf_counter() - t0) * 1e3)
-    return model, opt, losses, gnorms, ms
+        mem.append({"allocated_before": before,
+                    "peak": torch.cuda.max_memory_allocated()})
+    return model, opt, losses, gnorms, ms, mem
+
+
+def train_step_counted(cfg, ocfg, batch) -> dict:
+    """One ``make_train_step`` step of ``cfg`` counted on the ``meta``
+    device (nothing runs) with the arguments a card step holds live: the
+    parameters, AdamW's state and ``batch``'s shapes.  Returns the
+    counter's flops and bytes, its ``memory`` record (the dry run's keys)
+    and the seconds the count took."""
+    model = params_shape(cfg)
+    opt = adamw.init(ocfg, dict(model.named_parameters()))
+    args = (model, opt, {k: torch.empty_like(v, device="meta")
+                         for k, v in batch.items()})
+    t0 = time.perf_counter()
+    with OpCounter(hold=args) as counter:
+        out = make_train_step(cfg, ocfg)(*args)
+    return {"counts": counter.counts(), "memory": counter.memory(out),
+            "count_s": time.perf_counter() - t0}
 
 
 def train_step_split(cfg, ocfg, model, opt, batch, reps: int = 2) -> dict:
@@ -2071,8 +2104,12 @@ def train_whole(base, n_layers: int = None, remat: str = TRAIN_REMAT) -> dict:
     kernel launched.  Then where a step goes (:func:`train_step_split`,
     and the profiler's idle share) and its bound: 6 x parameters x tokens
     flops at the bf16 peak, then the update's UPDATE_BYTES a parameter
-    over HBM.  Returns the numbers printed."""
-    torch.cuda.reset_peak_memory_stats()
+    over HBM.
+
+    Before the steps, one step of the same configuration is counted on
+    ``meta`` (:func:`train_step_counted`); each step's measured peak must
+    lie within PEAK_TOL of the counted one.  Returns the numbers
+    printed."""
     cfg = dataclasses.replace(base, remat=remat,
                               n_layers=n_layers or base.n_layers)
     t0 = time.perf_counter()
@@ -2087,12 +2124,19 @@ def train_whole(base, n_layers: int = None, remat: str = TRAIN_REMAT) -> dict:
     before = {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
     step = make_train_step(cfg, ocfg)
     batches = [train_batch(cfg, 1, TRAIN_SEQ, i) for i in range(TRAIN_STEPS)]
+    counted = train_step_counted(cfg, ocfg, batches[0])
     for k in ALL_KERNELS:
         k.launches = 0
-    model, opt, losses, gnorms, step_ms = train_steps(step, model, opt,
-                                                      batches)
+    model, opt, losses, gnorms, step_ms, mem = train_steps(step, model, opt,
+                                                           batches)
     launches = {k.name: k.launches for k in ALL_KERNELS}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak = counted["memory"]["peak_bytes"]
+    ratios = [peak / m["peak"] for m in mem]
+    if not all(abs(r - 1) <= PEAK_TOL for r in ratios):
+        raise AssertionError(f"training {cfg.name}: the peak counted on meta"
+                             f" {counted['memory']}, measured {mem}: counted"
+                             f" / measured {ratios}, beyond {PEAK_TOL}")
+    peak_gb = max(m["peak"] for m in mem) / 1e9
     finite = all(math.isfinite(x) for x in losses + gnorms)
     # a zero-width FFN (falcon-mamba's d_ff = 0) has empty leaves, and the
     # norm before it feeds nothing else: no gradient reaches them
@@ -2127,6 +2171,10 @@ def train_whole(base, n_layers: int = None, remat: str = TRAIN_REMAT) -> dict:
             "batch": [1, TRAIN_SEQ], "losses": losses, "grad_norms": gnorms,
             "step_ms": step_ms, "step_ms_median_after_first": tail,
             "tokens_per_s": TRAIN_SEQ / tail * 1e3, "peak_gb": peak_gb,
+            "memory": {"counted": counted["memory"],
+                       "count_s": counted["count_s"], "measured": mem,
+                       "counted_over_measured_peak": ratios},
+            "counts": counted["counts"],
             "launches": launches, "unmoved_leaves": len(still),
             "inert_leaves": len(inert),
             "unmoved_leaf_kinds": sorted({k.rsplit(".", 1)[-1]
@@ -2135,6 +2183,23 @@ def train_whole(base, n_layers: int = None, remat: str = TRAIN_REMAT) -> dict:
             "breakdown": breakdown, "bound_ms": t_ops + t_bytes,
             "bound_ops_ms": t_ops, "bound_update_bytes_ms": t_bytes,
             "step_over_bound": tail / (t_ops + t_bytes)}
+
+
+def peak_line(whole: dict, tag: str) -> str:
+    """The line that sets :func:`train_whole`'s counted peak beside the
+    card's measured ones."""
+    m = whole["memory"]
+    c = m["counted"]
+    return (f"train-step memory {tag}: {whole['model']} ({whole['layers']} "
+            f"layers, remat {whole['remat']}): counted on meta in "
+            f"{m['count_s']:.1f} s: peak {c['peak_bytes']} B, arguments "
+            f"{c['argument_bytes']} B, temp {c['temp_bytes']} B, output "
+            f"{c['output_bytes']} B, written in place {c['alias_bytes']} B; "
+            f"measured, a step: peak {[x['peak'] for x in m['measured']]} B, "
+            f"allocated before {[x['allocated_before'] for x in m['measured']]}"
+            f" B; counted / measured peak "
+            f"{[round(r, 6) for r in m['counted_over_measured_peak']]} "
+            f"(within {PEAK_TOL})")
 
 
 def train_restart(base) -> dict:
@@ -2156,12 +2221,12 @@ def train_restart(base) -> dict:
         return model, adamw.init(ocfg, dict(model.named_parameters()))
 
     model, opt = fresh(31)
-    model, opt, straight, _, _ = train_steps(step, model, opt, batches)
+    model, opt, straight, *_ = train_steps(step, model, opt, batches)
     want = {k: p.detach().clone() for k, p in model.named_parameters()}
     del model, opt
     model, opt = fresh(31)
-    model, opt, first, _, _ = train_steps(step, model, opt,
-                                          batches[:RESTART_AT])
+    model, opt, first, *_ = train_steps(step, model, opt,
+                                        batches[:RESTART_AT])
     d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         mgr = CheckpointManager(d)
@@ -2180,8 +2245,8 @@ def train_restart(base) -> dict:
         restore_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    model, opt, second, _, _ = train_steps(step, model, opt,
-                                           batches[RESTART_AT:])
+    model, opt, second, *_ = train_steps(step, model, opt,
+                                         batches[RESTART_AT:])
     differ = [k for k, p in model.named_parameters()
               if not torch.equal(p, want[k])]
     if first + second != straight or differ or Path(d).exists():
@@ -2273,6 +2338,9 @@ DRYRUNS = [("gemma3-4b", "train_4k", "single"),
            ("gemma3-4b", "train_4k", "multi")]
 DRYRUN_TIMEOUT = 900
 CARD_BYTES = 80e9
+#: the memory record of a dry run, the reference's keys
+DRYRUN_MEMORY = {"argument_bytes", "output_bytes", "temp_bytes",
+                 "peak_bytes", "alias_bytes"}
 #: phase 18(c)'s depth: one local:global period of gemma3-4b at full width
 DTENSOR_LAYERS = 6
 #: phase 17's hand-worked bound of the gemma3-4b train step (PERF.md §5)
@@ -2301,8 +2369,10 @@ def start_dryruns(out: Path) -> dict:
 
 def collect_dryruns(procs: dict, out: Path, started: float) -> dict:
     """Phase 18(a)'s records: each dry run must exit 0 with ``status:
-    ok``, positive flops and per-device argument bytes under the card's
-    80 GB.  Returns, per cell, the roofline terms and the counts."""
+    ok``, positive flops, per-device argument bytes under the card's 80 GB
+    and the reference's memory keys counted (DRYRUN_MEMORY: a peak that
+    holds the arguments, temporaries its rest).  Returns, per cell, the
+    roofline terms, the counts and the memory."""
     recs = {}
     for (arch, shape, mesh), p in procs.items():
         left = DRYRUN_TIMEOUT - (time.perf_counter() - started)
@@ -2313,9 +2383,15 @@ def collect_dryruns(procs: dict, out: Path, started: float) -> dict:
             rc = None
         path = out / f"{arch}_{shape}_{mesh}.json"
         rec = json.loads(path.read_text()) if path.exists() else {}
+        mem = rec.get("memory", {})
         if rc != 0 or rec.get("status") != "ok" \
                 or not rec["loop_aware"]["flops_per_device"] > 0 \
-                or not rec["memory"]["argument_bytes"] < CARD_BYTES:
+                or not mem["argument_bytes"] < CARD_BYTES \
+                or set(mem) != DRYRUN_MEMORY \
+                or not mem["peak_bytes"] >= mem["argument_bytes"] > 0 \
+                or mem["temp_bytes"] != max(0, mem["peak_bytes"]
+                                            - mem["argument_bytes"]
+                                            - mem["output_bytes"]):
             log = (out / f"{arch}_{shape}_{mesh}.log").read_text()
             raise AssertionError(f"dry run {arch} {shape} {mesh}: exit "
                                  f"{rc}, {rec.get('traceback', log)[-3000:]}")
@@ -2368,20 +2444,16 @@ def oracle_vs_card(base, seed: int, **step_kw) -> dict:
             "ms": times, "ms_over_bound": measured / bound_ms}
 
 
-def train_step_counted_bound(base) -> dict:
+def train_step_counted_bound(whole: dict) -> dict:
     """Phase 17's gemma3-4b train step (B = 1, S = TRAIN_SEQ, no remat,
-    AdamW's defaults) counted on the ``meta`` device (nothing runs) and
-    priced at the H100's peaks, beside the hand-worked bound."""
-    cfg = dataclasses.replace(base, remat=TRAIN_REMAT)
-    model = params_shape(cfg)
-    ocfg = adamw.AdamWConfig()
-    opt = adamw.init(ocfg, dict(model.named_parameters()))
-    ids = torch.zeros((1, TRAIN_SEQ), dtype=torch.int64, device="meta")
+    AdamW's defaults) as :func:`train_whole` counted it on the ``meta``
+    device (``whole``, its result), priced at the H100's peaks, beside the
+    hand-worked bound."""
+    counts = whole["counts"]
     oracle = RooflineOracle(peak_flops_s=PEAK_FLOPS_BF16,
                             peak_bytes_s=HBM_BW)
-    _, counts = count(make_train_step(cfg, ocfg), model, opt,
-                      {"tokens": ids, "labels": ids})
-    return {"model": cfg.name, "batch": [1, TRAIN_SEQ], "counts": counts,
+    return {"model": whole["model"], "batch": whole["batch"],
+            "counts": counts,
             "counted_bound_ms": oracle.add_counts(
                 "train", counts["flops"], counts["bytes"]) * 1e3,
             "hand_worked_bound_ms": TRAIN_HAND_BOUND_MS}
@@ -2652,6 +2724,18 @@ def traced_run(replicas: int, duration: float, trace, *, outage=True,
     return sim, drive
 
 
+def traced_twin(replicas: int, duration: float, trace,
+                **platform_kw) -> dict:
+    """Run A on a twin (``device="cpu"`` or ``backend="np"``), in a process
+    of its own: what :func:`check_traced` compares, the wall seconds and
+    the decisions."""
+    out = traced_run(replicas, duration, trace, **platform_kw)[1]()
+    run = out["run"]
+    return {"records": run.records, "rng_tail": run.rng_tail,
+            "jsonl": run.jsonl, "wall_s": out["wall_s"],
+            "decisions": out["decisions"]}
+
+
 def check_traced(out, twins) -> dict:
     """Run A's checks: records equal to each twin's (NaN-aware), rng tails
     equal, the tracer's jsonl byte-equal to the first twin's, the Chrome
@@ -2659,14 +2743,14 @@ def check_traced(out, twins) -> dict:
     activation the outage lost either retried or counted lost for good."""
     run, sim, res = out["run"], out["sim"], out["res"]
     for name, twin in twins.items():
-        if not records_equal(run.records, twin["run"].records):
+        if not records_equal(run.records, twin["records"]):
             raise AssertionError(f"run A's records differ from the {name} "
                                  "twin's")
-        if run.rng_tail != twin["run"].rng_tail:
+        if run.rng_tail != twin["rng_tail"]:
             raise AssertionError(f"run A's rng tail differs from the {name} "
                                  "twin's")
-    first = next(iter(twins.values()))["run"]
-    if run.jsonl != first.jsonl:
+    first = next(iter(twins.values()))
+    if run.jsonl != first["jsonl"]:
         raise AssertionError("run A's decision log differs from the "
                              f"{next(iter(twins))} twin's")
     errs = validate_chrome_trace(chrome_trace(run))
@@ -2766,19 +2850,38 @@ def trace_path(replicas: int = TRACE_REPLICAS, device="cuda", *,
     its twins (``device="cpu"``: the kernels' plain versions; the float64
     ``backend="np"``), with the launch counters reset just before the run
     on ``device`` and read just after.  On the card, one slice of run A is
-    run again under the profiler.  Returns the numbers printed."""
-    workers = 6 * replicas
+    run again under the profiler.  The twins run in processes of their
+    own, beside the runs on ``device``.  Returns the numbers printed."""
     duration, trace = poisson_window(replicas, min_arrivals)
-    on_card = torch.device(device).type == "cuda"
+    waves = wave_trace(ticks, per_tick)
+    with host_processes(4) as pool:
+        twins = {name: pool.submit(traced_twin, replicas, duration, trace,
+                                   **kw)
+                 for name, kw in (("cpu", {"device": "cpu"}),
+                                  ("np", {"backend": "np"}))}
+        b_twins = {name: pool.submit(wave_run, replicas, waves,
+                                     batched=True, **kw)
+                   for name, kw in (("cpu", {"device": "cpu"}),
+                                    ("np", {"backend": "np"}))}
+        a_out = traced_path_a(replicas, duration, trace, device, twins,
+                              min_arrivals)
+        b_out = wave_path_b(replicas, waves, device, b_twins, ticks,
+                            per_tick)
+    return {"A": a_out, "B": b_out}
 
-    # run A: per arrival, traced, with resilience and an outage
+
+def traced_path_a(replicas, duration, trace, device, twins,
+                  min_arrivals) -> dict:
+    """Phase 12's run A: per arrival, traced, with resilience and an
+    outage, on ``device`` against its twins (futures)."""
+    workers = 6 * replicas
+    on_card = torch.device(device).type == "cuda"
     _sim, drive = traced_run(replicas, duration, trace, device=device)
     for k in KERNELS:
         k.launches = 0
     a = drive()
     a_launches = {k.name: k.launches for k in KERNELS}
-    twins = {"cpu": traced_run(replicas, duration, trace, device="cpu")[1](),
-             "np": traced_run(replicas, duration, trace, backend="np")[1]()}
+    twins = {name: f.result() for name, f in twins.items()}
     a_checks = check_traced(a, twins)
     if on_card and not a_launches["affinity_valid"] > 0:
         raise AssertionError(f"run A launched no affinity_valid: "
@@ -2801,16 +2904,20 @@ def trace_path(replicas: int = TRACE_REPLICAS, device="cuda", *,
                                 "full rate and cluster"}}
     if on_card:
         a_out["slice"] = slice_idle_share(replicas, duration, trace, device)
+    return a_out
 
-    # run B: same-tick waves through the fused bulk pass, untraced
-    waves = wave_trace(ticks, per_tick)
+
+def wave_path_b(replicas, waves, device, twins, ticks, per_tick) -> dict:
+    """Phase 12's run B, same-tick waves through the fused bulk pass,
+    untraced, on ``device`` against its twins (futures)."""
+    workers = 6 * replicas
+    on_card = torch.device(device).type == "cuda"
     for k in KERNELS:
         k.launches = 0
     b = wave_run(replicas, waves, batched=True, device=device)
     b_launches = {k.name: k.launches for k in KERNELS}
     seq = wave_run(replicas, waves, batched=False, device=device)
-    cpu = wave_run(replicas, waves, batched=True, device="cpu")
-    twin = wave_run(replicas, waves, batched=True, backend="np")
+    cpu, twin = (twins[name].result() for name in ("cpu", "np"))
     for name, other in (("one arrival at a time", seq), ("cpu", cpu),
                         ("np", twin)):
         if not records_equal(b["records"], other["records"]) \
@@ -2838,7 +2945,7 @@ def trace_path(replicas: int = TRACE_REPLICAS, device="cuda", *,
              "np_twin_wall_s": twin["wall_s"],
              "np_twin_us_per_wave_decision": twin["wall_s"] / n * 1e6,
              "cpu_wall_s": cpu["wall_s"], "launches": b_launches}
-    return {"A": a_out, "B": b_out}
+    return b_out
 
 
 # --------------------------------------------------------------------------- #
@@ -2971,25 +3078,46 @@ def predictive_run(replicas: int, trace, policy: str = "predictive",
             "decisions": plat.session.stats["decisions"]}
 
 
+def host_processes(n: int):
+    """``n`` spawned processes for the twins (``device="cpu"``, the float64
+    ``backend="np"``), which need no card and so run beside the card's
+    run; each imports this script afresh, its torch on one intra-op
+    thread.  Leaving the ``with`` block stops them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(
+        n, mp_context=multiprocessing.get_context("spawn"),
+        initializer=torch.set_num_threads, initargs=(1,))
+
+
 def predictive_path(replicas: int = TRACE_REPLICAS, device="cuda") -> dict:
     """Phase 13: the predictive trace on ``device`` with the launch counters
     reset just before it and read just after, held to its twins
     (``device="cpu"``: the kernels' plain versions; the float64
-    ``backend="np"``): records, rng tail, the pool's metrics and the
-    planner's stats equal; at least one prewarm; every prewarm and
-    migration target Listing-1 valid (:class:`CheckedPlanner`); one
-    ``affinity_valid`` launch a decision on the card.  Beside it the same
-    trace under the ``affinity`` policy, for the cold-start rate.  Returns
-    the numbers printed."""
+    ``backend="np"``; both in processes of their own, beside it): records,
+    rng tail, the pool's metrics and the planner's stats equal; at least
+    one prewarm; every prewarm and migration target Listing-1 valid
+    (:class:`CheckedPlanner`); one ``affinity_valid`` launch a decision on
+    the card.  Beside it the same trace under the ``affinity`` policy
+    (``device="cpu"``, in a third process: it decides the same), for the
+    cold-start rate.  Returns the numbers printed."""
     trace = build_trace(PRED_SCENARIO, duration=PRED_WINDOW,
                         rate=PRED_RATE * replicas, seed=TRACE_SEED)
     on_card = torch.device(device).type == "cuda"
-    for k in KERNELS:
-        k.launches = 0
-    run = predictive_run(replicas, trace, device=device)
-    launches = {k.name: k.launches for k in KERNELS}
-    twins = {"cpu": predictive_run(replicas, trace, device="cpu"),
-             "np": predictive_run(replicas, trace, backend="np")}
+    with host_processes(3) as pool:
+        twins = {"cpu": pool.submit(predictive_run, replicas, trace,
+                                    device="cpu"),
+                 "np": pool.submit(predictive_run, replicas, trace,
+                                   backend="np")}
+        aff = pool.submit(predictive_run, replicas, trace,
+                          policy="affinity", device="cpu")
+        for k in KERNELS:
+            k.launches = 0
+        run = predictive_run(replicas, trace, device=device)
+        launches = {k.name: k.launches for k in KERNELS}
+        twins = {name: f.result() for name, f in twins.items()}
+        aff = aff.result()
     for name, twin in twins.items():
         for key in ("rng_tail", "pool", "planner"):
             if run[key] != twin[key]:
@@ -3006,7 +3134,6 @@ def predictive_path(replicas: int = TRACE_REPLICAS, device="cuda") -> dict:
                                 "bulk_decide": 0}:
         raise AssertionError(f"the predictive trace launched {launches} for "
                              f"{run['decisions']} decisions")
-    aff = predictive_run(replicas, trace, policy="affinity", device=device)
     epoch_ms = [t * 1e3 for t in run["planner_epoch_s"]]
     return {"workers": 6 * replicas, "window_s": PRED_WINDOW,
             "rate_per_s": PRED_RATE * replicas, "arrivals": len(trace),
@@ -3023,7 +3150,7 @@ def predictive_path(replicas: int = TRACE_REPLICAS, device="cuda") -> dict:
             "pool": run["pool"],
             "cold_start_rate": run["pool"]["cold_start_rate"],
             "affinity_cold_start_rate": aff["pool"]["cold_start_rate"],
-            "affinity_wall_s": aff["wall_s"],
+            "affinity_cpu_wall_s": aff["wall_s"],
             "end_s": run["end_s"],
             "reduced": {"window_s": PRED_WINDOW, "epochs": PRED_EPOCHS,
                         "why": "a window of roots at the full rate and "
@@ -3047,6 +3174,12 @@ def main(argv=None) -> int:
                     "affinity_common.cuh, to build and time beside these "
                     "in phase 5")
     args = ap.parse_args(argv)
+    wall = {"start": time.perf_counter()}
+
+    def lap(phase: str):
+        """Ends ``phase``, which began at the last lap."""
+        wall[phase] = time.perf_counter()
+
     # 1. card
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's smoke run needs "
@@ -3068,6 +3201,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    lap("1")
     # 2. build, from the sources in this checkout
     for k in ALL_KERNELS:
         k.library_path().unlink(missing_ok=True)
@@ -3080,6 +3214,7 @@ def main(argv=None) -> int:
           f"{build_s:.2f} s (nvcc, sm_90a, in parallel); -Xptxas -v "
           f"registers per instance and spilled bytes: {ptxas}", flush=True)
 
+    lap("2")
     # 3. kernels vs plain, bit for bit
     shapes = AFFINITY_CASES
     errs = {"affinity_valid": 0.0, "bulk_decide": 0.0}
@@ -3120,6 +3255,7 @@ def main(argv=None) -> int:
           f"with the state reset at step {SCAN_CUT} moves y by {long_ratio} x "
           f"that tolerance (at least {SCAN_CARRY})", flush=True)
 
+    lap("3")
     # 4. the decision path at full size, held to the float64 twin
     plat = build_rig(WORKERS)  # device="cuda", the default
     for f in FUNCTIONS:  # first-launch and cache warm-up, outside the count
@@ -3155,6 +3291,7 @@ def main(argv=None) -> int:
           f"{(len(wave_case[1]), *wave_case[0].shape)} (both kernels, per "
           "wave)", flush=True)
 
+    lap("4")
     # 5. times: each kernel at its main-path shape, then at the 512-tag
     # scale serve.Engine lets the tag axis reach (a full wave of 512 rows)
     scale = kernel_case(WORKERS, 512, 512, seed=5)
@@ -3212,10 +3349,12 @@ def main(argv=None) -> int:
     dry_started = time.perf_counter()
     dry_procs = start_dryruns(dry_dir)
 
+    lap("5")
     # 6. the serving path: gemma3-4b whole behind serve.Engine
     cfg = GEMMA3_4B
     serve_launches, main_err, main_f32, serving = serving_path(cfg)
 
+    lap("6")
     # 7. one period of the model at full width in float32: flash vs direct
     f32_err, f32_scale, f32_launches = whole_model_f32(cfg)
     print(f"whole model, float32: gemma3-4b with n_layers=6 (one 5:1 "
@@ -3224,6 +3363,7 @@ def main(argv=None) -> int:
           f"largest |logit| {f32_scale}); {f32_launches} flash launches",
           flush=True)
 
+    lap("7")
     # 8. serving times
     flash_t = {(dtype, name): time_flash(dtype, window, seed=seed)
                for dtype in (torch.bfloat16, torch.float32)
@@ -3236,6 +3376,7 @@ def main(argv=None) -> int:
               f"{t['dtype']}: {json.dumps(t)}", flush=True)
     print(f"serving end to end {tag}: {json.dumps(serving)}", flush=True)
 
+    lap("8")
     # 9. the SSM serving path: gemma3-4b's weights freed, falcon-mamba-7b
     # whole behind the same engine and deployment
     gc.collect()
@@ -3248,6 +3389,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("9")
     # 10. the SSM model at full width in float32: kernel vs plain scan
     s32 = model_f32(ssm_cfg, SSM_F32_LAYERS, seed=1)
     gc.collect()
@@ -3257,6 +3399,7 @@ def main(argv=None) -> int:
           f"position via the scan kernel vs its plain version: "
           f"{json.dumps(s32)}", flush=True)
 
+    lap("10")
     # 11. SSM times (and, when asked, an earlier scan kernel's beside them)
     baseline = None
     if args.baseline_scan is not None:
@@ -3272,16 +3415,19 @@ def main(argv=None) -> int:
     print(f"SSM serving end to end {tag}: {json.dumps(ssm_serving)}",
           flush=True)
 
+    lap("11")
     # 12. the trace-driven decision path at 16,386 workers
     trace = trace_path()
     for run in ("A", "B"):
         print(f"trace path {tag}: run {run}: {json.dumps(trace[run])}",
               flush=True)
 
+    lap("12")
     # 13. the forecast plug-in on the decision path at 16,386 workers
     pred = predictive_path()
     print(f"predictive trace {tag}: {json.dumps(pred)}", flush=True)
 
+    lap("13")
     # 14. the MoE serving path: qwen3-moe-30b-a3b whole behind serve.Engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3294,6 +3440,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("14")
     # 15. jamba-1.5-large-398b (2 layers) and arctic-480b (1 layer) at full
     # width; jamba's float32 logits through the kernels vs plain; then the
     # kernels at the new shapes
@@ -3325,6 +3472,7 @@ def main(argv=None) -> int:
     print(f"time {tag}: selective_scan at {tuple(scan_wide['shape'])} "
           f"(jamba-1.5-large-398b): {json.dumps(scan_wide)}", flush=True)
 
+    lap("15")
     # 16. the enc-dec and vlm serving paths: seamless-m4t-large-v2 whole,
     # internvl2-76b at full width with 4 layers
     gc.collect()
@@ -3343,28 +3491,36 @@ def main(argv=None) -> int:
           f"position via the float32 flash kernel vs its plain version: "
           f"{json.dumps(ev['seamless_f32'])}", flush=True)
 
+    lap("16")
     # the dry runs' records, before phase 17's peak of ~71 GB (each dry
     # run holds a context on the card)
     dry = collect_dryruns(dry_procs, dry_dir, dry_started)
     dry_wall_s = time.perf_counter() - dry_started
 
+    lap("18(a) collected")
     # 17. training: gemma3-4b whole, a 6-layer crash-restart, float32 card
     # vs cpu
     train = train_path()
     for name, t in train.items():
         print(f"training {tag}: {name}: {json.dumps(t)}", flush=True)
+    print(peak_line(train["whole"], tag), flush=True)
 
+    lap("17")
     # 18. the mesh and roofline tooling: (a) the dry runs at full size, (b)
     # the oracle's bound held against the card, (c) a (1, 1) DTensor mesh
     t18 = time.perf_counter()
     for cell, rec in dry.items():
-        r = rec["roofline"]
+        r, m = rec["roofline"], rec["memory"]
         print(f"dry run: {cell} on {rec['n_chips']} fake ranks (--device "
               f"cuda), traced in {rec['trace_s']} s: compute "
               f"{r['compute_s'] * 1e3:.3f} ms, memory "
               f"{r['memory_s'] * 1e3:.3f} ms, collective "
               f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}; "
-              f"{json.dumps(rec)}", flush=True)
+              f"a device holds {m['argument_bytes'] / 1e9:.3f} GB of "
+              f"arguments, peak {m['peak_bytes'] / 1e9:.3f} GB, temp "
+              f"{m['temp_bytes'] / 1e9:.3f} GB, output "
+              f"{m['output_bytes'] / 1e9:.6f} GB; {json.dumps(rec)}",
+              flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     oracle = {}
@@ -3375,7 +3531,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         print(f"oracle vs card {tag}: {json.dumps(oracle[base.name])}",
               flush=True)
-    tb = train_step_counted_bound(GEMMA3_4B)
+    tb = train_step_counted_bound(train["whole"])
     print(f"oracle, phase 17's train step: counted bound "
           f"{tb['counted_bound_ms']:.3f} ms against the hand-worked "
           f"{tb['hand_worked_bound_ms']} ms (PERF.md §5); measured "
@@ -3390,12 +3546,20 @@ def main(argv=None) -> int:
           f"beside phases 6-16 and were collected {dry_wall_s:.1f} s after "
           "they started", flush=True)
 
+    lap("18")
     # 19. training of the ssm and hybrid families
     t19 = time.perf_counter()
     ssm_train = ssm_train_path()
     for name, t in ssm_train.items():
         print(f"ssm training {tag}: {name}: {json.dumps(t)}", flush=True)
+    print(peak_line(ssm_train["whole"], tag), flush=True)
     print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
+    lap("19")
+    names = list(wall)
+    print(f"seconds a phase {tag}: " + json.dumps(
+        {b: round(wall[b] - wall[a], 1) for a, b in zip(names, names[1:])})
+        + f"; {wall['19'] - wall['start']:.1f} s from phase 1 to 19",
+        flush=True)
 
     rows = []
     for k in KERNELS:

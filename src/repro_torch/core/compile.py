@@ -370,7 +370,7 @@ def require_ir(compiled: CompiledScript, version: int = IR_VERSION
             f"compiled-script IR version mismatch: consumer requires "
             f"v{version}, product carries v{got} (v4 added the cost/"
             "reachability analysis section — recompile the source with "
-            "repro.core.compile_script)",
+            "repro_torch.core.compile_script)",
             code="ir-version"),))
     return compiled
 

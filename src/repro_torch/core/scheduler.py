@@ -320,8 +320,9 @@ def schedule(
     or the :class:`repro.platform.Platform` facade."""
     warn_once(
         "core.schedule",
-        "repro.core.schedule() is the v1 call shape; prefer repro.core."
-        "decide() (structured Decision) or repro.platform.Platform.invoke()",
+        "repro_torch.core.schedule() is the v1 call shape; prefer "
+        "repro_torch.core.decide() (structured Decision) or "
+        "repro_torch.platform.Platform.invoke()",
     )
     got = decide(f, conf, aapp, reg, rng=rng, warmth=warmth)
     if got.worker is None:

@@ -24,7 +24,26 @@ The record holds the counts per device and per step, the link bytes of the
 collectives by the ring formulas of :mod:`repro_torch.roofline.hlo`, each
 mesh axis at its own link (NVLink for the model axis inside a node,
 InfiniBand for the others), the roofline terms at the H100's peaks
-(:mod:`repro_torch.launch.mesh`) and the per-device argument bytes.
+(:mod:`repro_torch.launch.mesh`) and, under ``memory``, rank 0's bytes as
+the counter keeps them live through the step, with the reference's keys:
+
+* ``argument_bytes``: the local shards of the step's arguments (the
+  parameters; the optimizer state and the batch, the batch, or the decode
+  cache and the token), a host int of a decode cache as the int32 scalar
+  the reference keeps on the device;
+* ``peak_bytes``: the most bytes live at once, the arguments included;
+* ``output_bytes``: the storages of the returned tensors that are not the
+  arguments' (a train step's metrics and step count, a prefill's logits,
+  a decode step's logits);
+* ``temp_bytes``: ``peak_bytes - argument_bytes - output_bytes``, at
+  least 0;
+* ``alias_bytes``: the argument storages the step writes in place: a
+  train step updates the parameters and the AdamW moments, a decode step
+  writes its cache (the reference donates them and aliases its outputs).
+
+The reference's ``xla_cost`` (XLA's own cost analysis of the compiled
+module) and ``compile_s`` have no counterpart, because nothing is
+compiled: they are left out, and ``trace_s`` times the traced step.
 """
 from __future__ import annotations
 
@@ -241,8 +260,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
     arg_bytes = _local_bytes(args[1:]) + _local_bytes(params)
     rules = sh.activation_rules(cfg, mesh, batch=B)
     with sharding_rules(rules), implicit_replication(), \
-            OpCounter() as counter:
-        step(*args)
+            OpCounter(hold=args) as counter:
+        out = step(*args)
     t_trace = time.time() - t0
 
     colls, link_by_axis, collective_s = collective_terms(
@@ -266,12 +285,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "n_chips": n_chips,
         "fsdp": fsdp,
         "trace_s": round(t_trace, 2),
-        "memory": {
-            "argument_bytes": arg_bytes,
-            "peak_bytes": 0,
-            "peak_why": "not measured: the step runs on meta tensors, "
-                        "and no tracker of the peak is wired in",
-        },
+        "memory": counter.memory(out, arg_bytes),
         "loop_aware": {"flops_per_device": flops_pd,
                        "bytes_per_device": bytes_pd,
                        "product_flops_per_device": counter.product_flops,
@@ -291,6 +305,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "params_active": active,
     })
     return rec
+
+
+def parse_overrides(pairs) -> dict:
+    """``--set key=value`` pairs as config overrides, each value as JSON
+    where it parses (``attn_chunk=1024``), else as the string."""
+    overrides = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        try:
+            v = json.loads(v)
+        except json.JSONDecodeError:
+            pass
+        overrides[k] = v
+    return overrides
 
 
 def cells(archs=None, shapes=None):
@@ -325,14 +353,7 @@ def main(argv=None):
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
 
-    overrides = {}
-    for kv in args.set:
-        k, v = kv.split("=", 1)
-        try:
-            v = json.loads(v)
-        except json.JSONDecodeError:
-            pass
-        overrides[k] = v
+    overrides = parse_overrides(args.set)
 
     failures = 0
     for a, s in cells(archs, shapes):
@@ -367,6 +388,7 @@ def main(argv=None):
             if rec["status"] == "ok":
                 r = rec["roofline"]
                 print(f"[{tag}] ok trace={rec['trace_s']}s "
+                      f"peak={rec['memory']['peak_bytes'] / 1e9:.3f}GB "
                       f"compute={r['compute_s']*1e3:.2f}ms "
                       f"memory={r['memory_s']*1e3:.2f}ms "
                       f"collective={r['collective_s']*1e3:.2f}ms "

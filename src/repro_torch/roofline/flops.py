@@ -17,11 +17,13 @@ tests/test_roofline.py.
 The port adds the same rules on PyTorch's aten op stream
 (:class:`OpCounter`): eager PyTorch has no while loops, so each executed op
 counts once, and there is no fusion, so every op's operands and result are
-its bytes.
+its bytes.  In the same pass it keeps the program's live bytes and their
+peak, as XLA's ``memory_analysis()`` reports them for a compiled one.
 """
 from __future__ import annotations
 
 import re
+import weakref
 from typing import Dict, List, Optional, Set, Tuple
 
 import torch
@@ -313,6 +315,30 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _held_tensors(tree) -> List[torch.Tensor]:
+    """The tensors in ``tree`` (dicts, lists, tuples, modules' parameters
+    and buffers), a DTensor as its local shard."""
+    if isinstance(tree, torch.nn.Module):
+        return _held_tensors(list(tree.parameters())
+                            + list(tree.buffers()))
+    if isinstance(tree, dict):
+        return _held_tensors(list(tree.values()))
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _held_tensors(v)]
+    if isinstance(tree, torch.Tensor):
+        return [getattr(tree, "_local_tensor", tree)]
+    return []
+
+
+def _storage_bytes(tensors) -> int:
+    """The bytes of the distinct storages under ``tensors``."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
 def _in_propagation() -> bool:
     import sys
 
@@ -339,15 +365,37 @@ class OpCounter(TorchDispatchMode):
     ops, so the counts are per device, as partitioned HLO's are; the
     functional collectives DTensor issues are kept in ``collectives`` as
     ``(kind, result bytes, group name)``, their link bytes left to the
-    caller, which knows each group's size and link."""
+    caller, which knows each group's size and link.
 
-    def __init__(self):
+    Live bytes are kept by storage: the storages of ``hold`` (the
+    program's arguments: the tensors in its dicts, lists, tuples and
+    modules, a DTensor's local shard) are live at entry; each op's result
+    adds its storage's bytes the first time that storage is seen (a view,
+    an in-place op or an ``out=`` result reuses a storage and adds
+    nothing, a collective's result counts as any other); a storage's bytes
+    go when it is freed (a held one too: a step may drop an argument from
+    a container it was given).  ``peak_bytes`` is the highest total;
+    ``written`` holds the bytes of each held storage an op wrote in place.
+    The tensors DTensor's sharding propagator makes are global-shape
+    fakes, not the program's, and count for nothing; nor does the scratch
+    a kernel allocates and frees within one op."""
+
+    def __init__(self, hold=()):
         super().__init__()
         self.flops = 0.0
         self.product_flops = 0.0
         self.bytes = 0.0
         self.ops = 0
         self.collectives: List[Tuple[str, int, str]] = []
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._live: Dict[int, int] = {}  # storage key -> its bytes
+        self._finalizers: Dict[int, weakref.finalize] = {}
+        for t in _held_tensors(hold):
+            self._add(t)
+        self.argument_bytes = self.live_bytes
+        self.held = dict(self._live)  # the held storages still live
+        self.written: Dict[int, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -358,7 +406,45 @@ class OpCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if not _in_propagation():
             self._count(func, args, kwargs, out)
+            self._track(func, args, kwargs, out)
         return out
+
+    def __exit__(self, *exc):
+        for f in list(self._finalizers.values()):  # later frees: not ours
+            f.detach()
+        self._finalizers.clear()
+        return super().__exit__(*exc)
+
+    def _add(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key, n = st._cdata, st.nbytes()
+        had = self._live.get(key)
+        if had is None:
+            self._finalizers[key] = weakref.finalize(st, self._free, key)
+        elif n <= had:
+            return
+        self._live[key] = n
+        self.live_bytes += n - (had or 0)
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def _free(self, key: int) -> None:
+        self._finalizers.pop(key, None)
+        self.held.pop(key, None)  # its key may name a new storage now
+        self.live_bytes -= self._live.pop(key, 0)
+
+    def _track(self, func, args, kwargs, out) -> None:
+        if func._schema.is_mutable:
+            for i, a in enumerate(func._schema.arguments):
+                if a.alias_info is None or not a.alias_info.is_write:
+                    continue
+                t = kwargs.get(a.name) if a.kwarg_only or i >= len(args) \
+                    else args[i]
+                for x in _tensors((t,)):
+                    key = x.untyped_storage()._cdata
+                    if key in self.held:
+                        self.written[key] = self.held[key]
+        for t in _tensors(out if isinstance(out, (list, tuple)) else (out,)):
+            self._add(t)
 
     def _count(self, func, args, kwargs, out) -> None:
         name = func._overloadpacket.__name__
@@ -389,16 +475,34 @@ class OpCounter(TorchDispatchMode):
         self.bytes += sum(_nbytes(t) for t in ins) \
             + sum(_nbytes(t) for t in outs)
 
+    def memory(self, out, argument_bytes: Optional[int] = None
+               ) -> Dict[str, int]:
+        """The ``memory`` record of :mod:`repro_torch.launch.dryrun`, whose
+        docstring defines its keys, for a program that returned ``out``;
+        ``argument_bytes`` defaults to the held storages' bytes."""
+        if argument_bytes is None:
+            argument_bytes = self.argument_bytes
+        out_bytes = _storage_bytes(
+            t for t in _held_tensors(out)
+            if t.untyped_storage()._cdata not in self.held)
+        return {"argument_bytes": argument_bytes,
+                "output_bytes": out_bytes,
+                "temp_bytes": max(0, self.peak_bytes - argument_bytes
+                                  - out_bytes),
+                "peak_bytes": self.peak_bytes,
+                "alias_bytes": sum(self.written.values())}
+
     def counts(self) -> Dict[str, float]:
-        """``{"flops", "bytes", "product_flops"}`` so far."""
+        """``{"flops", "bytes", "product_flops", "peak_bytes"}`` so far."""
         return {"flops": self.flops, "bytes": self.bytes,
-                "product_flops": self.product_flops}
+                "product_flops": self.product_flops,
+                "peak_bytes": self.peak_bytes}
 
 
 def count(fn, *args, **kwargs) -> Tuple[object, Dict[str, float]]:
-    """``fn(*args, **kwargs)`` under a fresh :class:`OpCounter`: its result
-    and :meth:`OpCounter.counts`."""
-    with OpCounter() as c:
+    """``fn(*args, **kwargs)`` under a fresh :class:`OpCounter` holding the
+    arguments: its result and :meth:`OpCounter.counts`."""
+    with OpCounter(hold=(args, kwargs)) as c:
         out = fn(*args, **kwargs)
     return out, c.counts()
 

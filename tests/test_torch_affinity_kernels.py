@@ -7,16 +7,21 @@ tolerance — and the float64 numpy twin on (valid, winner) where memories lie
 on the 0.25 grid.  The CUDA kernels themselves are held to the plain
 versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import os
 import re
 from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
-from repro.kernels.affinity import affinity_valid_np as ref_affinity_valid_np
-from repro.kernels.affinity import bulk_decide_np as ref_bulk_decide_np
-from repro_torch.kernels.affinity import (
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+
+from repro.kernels.affinity import affinity_valid_np as ref_affinity_valid_np  # noqa: E402
+from repro.kernels.affinity import bulk_decide_np as ref_bulk_decide_np  # noqa: E402
+from repro_torch.kernels.affinity import (  # noqa: E402
     NO_CAP,
     NO_CONC,
     affinity_valid,
@@ -24,11 +29,11 @@ from repro_torch.kernels.affinity import (
     bulk_decide,
     bulk_decide_np,
 )
-from repro_torch.kernels.affinity import bulk_kernel, kernel
-from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref
-from repro_torch.kernels.affinity.ops import as_inputs
-from repro_torch.kernels.affinity.ref import affinity_valid_ref
-from tests.test_bulk_kernels import SHAPES, _case
+from repro_torch.kernels.affinity import bulk_kernel, kernel  # noqa: E402
+from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref  # noqa: E402
+from repro_torch.kernels.affinity.ops import as_inputs  # noqa: E402
+from repro_torch.kernels.affinity.ref import affinity_valid_ref  # noqa: E402
+from tests.test_bulk_kernels import SHAPES, _case  # noqa: E402
 
 pytest.importorskip("hypothesis")
 from hypothesis import given, settings, strategies as hyp_st  # noqa: E402

@@ -1,13 +1,19 @@
 """The port's copy of the vanilla-OpenWhisk baseline (``core/baseline.py``)
 against the reference, and the port's ``repro_torch.core`` surface against
 ``repro.core``'s, so that a module left out of the copy shows here."""
+import os
 import random
 
 import pytest
 
-import repro.core as ref_core
-import repro_torch.core as port_core
-from repro_torch.core import (ClusterState, Registry, SchedulingFailure,
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+
+import repro.core as ref_core  # noqa: E402
+import repro_torch.core as port_core  # noqa: E402
+from repro_torch.core import (ClusterState, Registry, SchedulingFailure,  # noqa: E402
                               schedule_vanilla, try_schedule_vanilla)
 
 
@@ -59,3 +65,42 @@ def test_vanilla_baseline_equals_the_reference(seed):
         if picks[0] is not None:
             for _, st, reg in clusters:
                 st.allocate(f, picks[0], reg)
+
+
+def test_the_v1_schedule_warning_names_the_port():
+    """The v1 shim's deprecation points the port's users at the port's own
+    entry points (the reference's text is ``tests/test_deprecation.py``'s)."""
+    import warnings
+
+    from repro_torch.core import deprecation
+
+    st, reg = mk()
+    reg.register("f", memory=1.0, tag="t")
+    deprecation.reset()
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            port_core.schedule("f", st.conf(), port_core.parse(
+                "t:\n  workers: *\n"), reg)
+    finally:
+        deprecation.reset()
+    assert [str(x.message) for x in w
+            if issubclass(x.category, DeprecationWarning)] == [
+        "repro_torch.core.schedule() is the v1 call shape; prefer "
+        "repro_torch.core.decide() (structured Decision) or "
+        "repro_torch.platform.Platform.invoke()"]
+
+
+def test_the_ir_version_error_names_the_port():
+    _, reg = mk()
+    compiled = port_core.compile_script(
+        port_core.parse("t:\n  workers: *\n"), reg)
+    v = port_core.IR_VERSION
+    with pytest.raises(port_core.CompileError) as e:
+        port_core.require_ir(compiled, version=v + 1)
+    assert [(d.code, d.message) for d in e.value.diagnostics] == [(
+        "ir-version",
+        f"compiled-script IR version mismatch: consumer requires v{v + 1}, "
+        f"product carries v{v} (v4 added the cost/reachability analysis "
+        "section — recompile the source with "
+        "repro_torch.core.compile_script)")]

@@ -10,16 +10,22 @@ predictive trace) against the same traces on the plain versions, and a
 MoE layer on the card against the CPU.  Every test here needs an NVIDIA GPU and skips without
 one; the module imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch built for CUDA."""
-import pytest
-import torch
+import os
 
-import chip_smoke
-from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import mamba_scan as ms
-from repro_torch.kernels.affinity import (KERNELS, affinity_valid,
+import pytest
+
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.kernels.affinity import (KERNELS, affinity_valid,  # noqa: E402
                                           bulk_decide, bulk_kernel)
-from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref
-from repro_torch.kernels.affinity.ref import affinity_valid_ref
+from repro_torch.kernels.affinity.bulk_ref import bulk_decide_ref  # noqa: E402
+from repro_torch.kernels.affinity.ref import affinity_valid_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 

@@ -14,9 +14,12 @@ On the single mesh the port's record equals the reference's in status,
 ``fsdp``, the parameter counts, the model flops per device and the
 per-device argument bytes; the matrix-product flops per device agree
 within 1% (the chunked loss and the attention's backward are formed in
-another order of products, nothing else).  The total flops, bytes and
-collectives are printed, not held: XLA fuses, and DTensor picks other
-collectives than GSPMD.  The multi-pod leg, which the reference cannot run
+another order of products, nothing else).  The total flops, bytes,
+collectives and the other memory keys are printed, not held: XLA fuses,
+DTensor picks other collectives than GSPMD, and XLA's CPU backend reports
+a peak near the arguments beside the sum of its temporary buffers.  Each
+port record carries the reference's memory keys, counted through the
+step on the local shards.  The multi-pod leg, which the reference cannot run
 under jax 0.9, runs on the port.
 """
 import json
@@ -28,6 +31,11 @@ import time
 from pathlib import Path
 
 import pytest
+
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
 pytest.importorskip("jax")  # the reference's dry run needs a real JAX
 
@@ -170,7 +178,8 @@ def test_the_single_mesh_record_equals_the_reference(runs, arch, shape):
           f" (reference {want['loop_aware']['flops_per_device']}); bytes "
           f"{got['loop_aware']['bytes_per_device']} (reference "
           f"{want['loop_aware']['bytes_per_device']}); collectives "
-          f"{got['collectives']} (reference {want['collectives']})")
+          f"{got['collectives']} (reference {want['collectives']}); memory "
+          f"{got['memory']} (reference {want['memory']})")
     assert abs(p - r) <= PRODUCT_REL * r
 
 
@@ -191,6 +200,55 @@ def test_the_multi_pod_leg_runs_on_the_port(runs, arch, shape):
     print(f"{arch} {shape} multi: {json.dumps(r)}, collectives "
           f"{rec['collectives']}, link bytes by axis "
           f"{rec['collective_link_bytes_by_axis']}")
+
+
+MEMORY = {"argument_bytes", "output_bytes", "temp_bytes", "peak_bytes",
+          "alias_bytes"}
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_the_record_counts_each_devices_memory(runs, arch, shape, mesh):
+    """The reference's memory keys, counted on the local shards through the
+    step (no stand-in: no ``peak_why``, no ``xla_cost``): the peak holds
+    the arguments, the temporaries are the rest of it; a train step writes
+    its parameters and moments in place, a prefill writes no argument, and
+    jamba's decode step writes its attention layers' KV cache."""
+    out, _ = runs
+    rec = record(out, arch, shape, mesh)
+    assert rec["status"] == "ok", rec.get("traceback", rec)[-3000:]
+    mem = rec["memory"]
+    assert set(mem) == MEMORY and "xla_cost" not in rec
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+    assert mem["output_bytes"] > 0
+    assert mem["temp_bytes"] == max(0, mem["peak_bytes"]
+                                    - mem["argument_bytes"]
+                                    - mem["output_bytes"])
+    assert (mem["alias_bytes"] > 0) == (rec["kind"] != "prefill")
+    assert mem["alias_bytes"] <= mem["argument_bytes"]
+    print(f"{arch} {shape} {rec['mesh']}: {mem}")
+
+
+def test_the_peak_probe_finds_the_records_peak():
+    """``tools/dryrun_peak.py`` on a narrow falcon-mamba prefill_32k cell:
+    the record it prints, and a peak within 1% below the record's, most
+    of it in the live bytes of the ten ops it lists."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_DRYRUN_DEVICES="8", OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "dryrun_peak.py"),
+         "falcon-mamba-7b", "prefill_32k", "--reduced", "--device", "cpu",
+         "--set", "d_model=128", "--set", "n_layers=2", "--set",
+         "scan_chunk=256"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    mem = json.loads(lines[0].split(": ", 1)[1])
+    peak = float(lines[1].split("~", 1)[1].split(" GB")[0]) * 1e9
+    assert 0.99 * mem["peak_bytes"] - 1e6 <= peak <= mem["peak_bytes"] + 1e6
+    by_op = [float(x.rsplit(": ", 1)[1].split(" GB")[0]) * 1e9
+             for x in lines if x.startswith("  made by ")]
+    assert 0.9 * peak <= sum(by_op) <= peak + 1e7  # the ten largest ops
 
 
 def test_the_dry_run_records_a_skip(runs):

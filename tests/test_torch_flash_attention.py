@@ -7,9 +7,15 @@ Tolerances are those of ``tests/test_kernels.py`` for the flash kernel:
 2e-5 in float32, 5e-2 in bfloat16 (both sides round the output to bf16
 once; the two can differ by one bf16 step).  The attention switch is held
 to 1e-5 in float32: the same maths, summed in another order."""
+import os
+
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

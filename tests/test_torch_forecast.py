@@ -16,34 +16,40 @@ at a reduced cluster.
 """
 import dataclasses
 import math
+import os
 import random
 import types
 import warnings
 
 import pytest
 
-import repro.cluster.simulator as ref_sim
-import repro.cluster.topology as ref_topology
-import repro.core as ref_core
-import repro.core.scheduler as ref_scheduler
-import repro.core.state as ref_state
-import repro.forecast as ref_forecast
-import repro.platform as ref_platform
-import repro.pool as ref_pool
-import repro.serve.engine as ref_engine
-import repro.workload as ref_workload
-import repro_torch.cluster.simulator as port_sim
-import repro_torch.cluster.topology as port_topology
-import repro_torch.core as port_core
-import repro_torch.core.scheduler as port_scheduler
-import repro_torch.core.state as port_state
-import repro_torch.forecast as port_forecast
-import repro_torch.platform as port_platform
-import repro_torch.pool as port_pool
-import repro_torch.serve.engine as port_engine
-import repro_torch.workload as port_workload
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
-import chip_smoke
+import repro.cluster.simulator as ref_sim  # noqa: E402
+import repro.cluster.topology as ref_topology  # noqa: E402
+import repro.core as ref_core  # noqa: E402
+import repro.core.scheduler as ref_scheduler  # noqa: E402
+import repro.core.state as ref_state  # noqa: E402
+import repro.forecast as ref_forecast  # noqa: E402
+import repro.platform as ref_platform  # noqa: E402
+import repro.pool as ref_pool  # noqa: E402
+import repro.serve.engine as ref_engine  # noqa: E402
+import repro.workload as ref_workload  # noqa: E402
+import repro_torch.cluster.simulator as port_sim  # noqa: E402
+import repro_torch.cluster.topology as port_topology  # noqa: E402
+import repro_torch.core as port_core  # noqa: E402
+import repro_torch.core.scheduler as port_scheduler  # noqa: E402
+import repro_torch.core.state as port_state  # noqa: E402
+import repro_torch.forecast as port_forecast  # noqa: E402
+import repro_torch.platform as port_platform  # noqa: E402
+import repro_torch.pool as port_pool  # noqa: E402
+import repro_torch.serve.engine as port_engine  # noqa: E402
+import repro_torch.workload as port_workload  # noqa: E402
+
+import chip_smoke  # noqa: E402
 
 
 def _side(sim, topology, core, scheduler, state, forecast, platform, pool,

@@ -6,11 +6,16 @@ import ast
 import os
 import subprocess
 import sys
+import textwrap
 from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -143,3 +148,41 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
                               timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+#: a ``sitecustomize`` that makes torch unimportable, as it is in the
+#: repo's CI job (numpy, pyyaml, pytest and hypothesis only)
+NO_TORCH = textwrap.dedent("""
+    import sys
+
+    class NoTorch:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] == "torch":  # as where it is absent
+                raise ModuleNotFoundError(f"No module named {name!r}",
+                                          name=name)
+            return None
+
+    sys.meta_path.insert(0, NoTorch())
+""")
+
+
+def test_the_tests_collect_without_torch(tmp_path):
+    """Collecting ``tests/`` with torch unimportable reports no error: each
+    port test module skips at its first line instead."""
+    (tmp_path / "sitecustomize.py").write_text(NO_TORCH)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        (str(tmp_path), str(ROOT / "src"))))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only", "-q", "-rs",
+         "-p", "no:cacheprovider", "tests/"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1]
+    assert proc.returncode == 0 and "error" not in tail, \
+        proc.stdout[-3000:] + proc.stderr[-3000:]
+    skipped = {line.split()[2].split(":")[0]
+               for line in proc.stdout.splitlines()
+               if line.startswith("SKIPPED") and "'torch'" in line}
+    port = {str(p.relative_to(ROOT))
+            for p in (ROOT / "tests").glob("test_torch_*.py")}
+    assert skipped == port
+

@@ -10,9 +10,15 @@ are widened to float32 on entry on both the port's side and the Pallas
 kernel's, so they are held to the same 1e-4.  Then the wrapper's refusals,
 and its routes: a CPU tensor reaches the plain version only, the kernel
 wrapper refuses a host tensor, and another device reaches neither."""
+import os
+
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -10,29 +10,35 @@ reference's results on the same inputs; ``serve.Engine``'s records are the
 same with a bundle attached.
 """
 import math
+import os
 import random
 import warnings
 
 import pytest
 
-import repro.obs as ref_obs
-from repro.cluster.topology import two_pod_cells as ref_cells
-from repro.cluster.topology import zone_map as ref_zone_map
-from repro.platform import Platform as RefPlatform
-from repro.pool import StartCosts as RefStartCosts
-from repro.pool import WarmPool as RefWarmPool
-from repro.pool import make_policy as ref_make_policy
-from repro.serve.engine import Engine as RefEngine
-from repro.serve.engine import Request as RefRequest
-from repro.workload import InvocationRecord as RefRecord
-import repro_torch.obs as port_obs
-from repro_torch.cluster.topology import two_pod_cells, zone_map
-from repro_torch.obs import Obs
-from repro_torch.platform import Platform
-from repro_torch.pool import StartCosts, WarmPool, make_policy
-from repro_torch.serve.engine import Engine, Request
-from repro_torch.workload import InvocationRecord
-from test_torch_serve import drive
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+
+import repro.obs as ref_obs  # noqa: E402
+from repro.cluster.topology import two_pod_cells as ref_cells  # noqa: E402
+from repro.cluster.topology import zone_map as ref_zone_map  # noqa: E402
+from repro.platform import Platform as RefPlatform  # noqa: E402
+from repro.pool import StartCosts as RefStartCosts  # noqa: E402
+from repro.pool import WarmPool as RefWarmPool  # noqa: E402
+from repro.pool import make_policy as ref_make_policy  # noqa: E402
+from repro.serve.engine import Engine as RefEngine  # noqa: E402
+from repro.serve.engine import Request as RefRequest  # noqa: E402
+from repro.workload import InvocationRecord as RefRecord  # noqa: E402
+import repro_torch.obs as port_obs  # noqa: E402
+from repro_torch.cluster.topology import two_pod_cells, zone_map  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.platform import Platform  # noqa: E402
+from repro_torch.pool import StartCosts, WarmPool, make_policy  # noqa: E402
+from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from repro_torch.workload import InvocationRecord  # noqa: E402
+from test_torch_serve import drive  # noqa: E402
 
 # tests/test_obs.py's script: anti-affinity, an affine tag with a failing
 # followup, a pinned heavy

@@ -9,19 +9,25 @@ float64 ``backend="np"`` where memories lie on the 0.25 grid and no
 ``min_cost`` rational tie can split the two.  The port runs with
 ``device="cpu"``: its kernels' plain PyTorch versions.
 """
+import os
 import random
 
 import pytest
 
-from benchmarks.scheduler_scale import SCRIPT_TMPL
-from repro.core import ClusterState, Registry, parse
-from repro.platform import Platform as RefPlatform
-from repro.pool import StartCosts, WarmPool, make_policy
-from repro_torch.platform import Platform
-from tests.test_bulk_wave import BATCH_FNS, BATCH_SCRIPT, ZONED_SCRIPT
-from tests.test_torch_session import to_port_script, to_port_state
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
-import chip_smoke
+from benchmarks.scheduler_scale import SCRIPT_TMPL  # noqa: E402
+from repro.core import ClusterState, Registry, parse  # noqa: E402
+from repro.platform import Platform as RefPlatform  # noqa: E402
+from repro.pool import StartCosts, WarmPool, make_policy  # noqa: E402
+from repro_torch.platform import Platform  # noqa: E402
+from tests.test_bulk_wave import BATCH_FNS, BATCH_SCRIPT, ZONED_SCRIPT  # noqa: E402
+from tests.test_torch_session import to_port_script, to_port_state  # noqa: E402
+
+import chip_smoke  # noqa: E402
 
 
 def _pool():

@@ -8,39 +8,45 @@ trace and a zone outage driven through the port's ``TraceWorkload`` on
 ``device="cpu"`` give the reference's records (``repr``, so NaN latencies
 of shed and lost records compare too) and ``permanent_lost``.
 """
+import os
 import random
 
 import pytest
 
-import repro.resilience as ref_res
-from repro.cluster.simulator import ClusterSim as RefSim
-from repro.cluster.simulator import SimParams as RefParams
-from repro.cluster.topology import WorkerSpec as RefSpec
-from repro.cluster.topology import multizone_testbed as ref_multizone
-from repro.cluster.topology import paper_testbed as ref_testbed
-from repro.obs.slo import SloEngine as RefSloEngine
-from repro.platform import Platform as RefPlatform
-from repro.pool import StartCosts as RefStartCosts
-from repro.pool import WarmPool as RefWarmPool
-from repro.pool import make_policy as ref_make_policy
-from repro.workload import TraceWorkload as RefWorkload
-from repro.workload import build_trace as ref_build_trace
-from repro.workload import overload_trace as ref_overload_trace
-from repro.workload import poisson_trace as ref_poisson_trace
-from repro.workload import register_functions as ref_register
-from repro.workload.replay import build_script as ref_build_script
-import repro_torch.resilience as port_res
-from repro_torch.cluster.simulator import ClusterSim, SimParams
-from repro_torch.cluster.topology import (WorkerSpec, multizone_testbed,
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+
+import repro.resilience as ref_res  # noqa: E402
+from repro.cluster.simulator import ClusterSim as RefSim  # noqa: E402
+from repro.cluster.simulator import SimParams as RefParams  # noqa: E402
+from repro.cluster.topology import WorkerSpec as RefSpec  # noqa: E402
+from repro.cluster.topology import multizone_testbed as ref_multizone  # noqa: E402
+from repro.cluster.topology import paper_testbed as ref_testbed  # noqa: E402
+from repro.obs.slo import SloEngine as RefSloEngine  # noqa: E402
+from repro.platform import Platform as RefPlatform  # noqa: E402
+from repro.pool import StartCosts as RefStartCosts  # noqa: E402
+from repro.pool import WarmPool as RefWarmPool  # noqa: E402
+from repro.pool import make_policy as ref_make_policy  # noqa: E402
+from repro.workload import TraceWorkload as RefWorkload  # noqa: E402
+from repro.workload import build_trace as ref_build_trace  # noqa: E402
+from repro.workload import overload_trace as ref_overload_trace  # noqa: E402
+from repro.workload import poisson_trace as ref_poisson_trace  # noqa: E402
+from repro.workload import register_functions as ref_register  # noqa: E402
+from repro.workload.replay import build_script as ref_build_script  # noqa: E402
+import repro_torch.resilience as port_res  # noqa: E402
+from repro_torch.cluster.simulator import ClusterSim, SimParams  # noqa: E402
+from repro_torch.cluster.topology import (WorkerSpec, multizone_testbed,  # noqa: E402
                                           paper_testbed)
-from repro_torch.obs.slo import SloEngine
-from repro_torch.platform import Platform
-from repro_torch.pool import StartCosts, WarmPool, make_policy
-from repro_torch.resilience import Resilience
-from repro_torch.workload import (COMPUTE_S, TraceWorkload, build_trace,
+from repro_torch.obs.slo import SloEngine  # noqa: E402
+from repro_torch.platform import Platform  # noqa: E402
+from repro_torch.pool import StartCosts, WarmPool, make_policy  # noqa: E402
+from repro_torch.resilience import Resilience  # noqa: E402
+from repro_torch.workload import (COMPUTE_S, TraceWorkload, build_trace,  # noqa: E402
                                   overload_trace, poisson_trace,
                                   register_functions)
-from repro_torch.workload.replay import build_script
+from repro_torch.workload.replay import build_script  # noqa: E402
 
 # each package's modules, so one body drives either
 PORT = dict(res=port_res, sim=ClusterSim, params=SimParams, spec=WorkerSpec,

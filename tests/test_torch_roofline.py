@@ -10,8 +10,14 @@ the per-op rules by hand on a small one.  ``RooflineOracle`` matches the
 reference's on ``test_analysis.py``'s cases and on compiled HLO, and
 prices a PyTorch call (``add_module``) from the counter.
 """
+import os
+
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -212,6 +218,166 @@ def test_the_counter_keeps_collectives_apart():
     assert flops.collective_link_bytes("all-reduce", 1000, 4) == \
         CollectiveOp("all-reduce", 1000, 4, "").link_bytes == 1500.0
     assert flops.collective_link_bytes("all-gather", 1000, 1) == 0.0
+
+
+# --------------------------------------------------------------------------- #
+# the counter's live bytes
+# --------------------------------------------------------------------------- #
+
+N = 1000  # float32 elements: 4000 bytes a tensor
+
+
+@pytest.mark.parametrize("dev", ["cpu", "meta"])
+def test_the_counter_keeps_a_chains_peak_in_closed_form(dev):
+    """x held; a = 2x, b = a + 1, a freed, c = exp(b), s = sum(c): at most
+    x, a and b (or x, b, c and the 4-byte s) live at once, 3 x 4000 + 4
+    bytes; at the end x, b, c and s."""
+    x = torch.ones(N, device=dev)
+    with flops.OpCounter(hold=x) as c:
+        a = x * 2
+        b = a + 1
+        assert c.live_bytes == 3 * 4 * N
+        del a  # a freed intermediate is subtracted
+        assert c.live_bytes == 2 * 4 * N
+        e = b.exp()
+        s = e.sum()
+        live = c.live_bytes
+    assert live == 3 * 4 * N + 4
+    assert c.peak_bytes == 3 * 4 * N + 4
+    assert c.memory((b, e, s)) == {
+        "argument_bytes": 4 * N, "output_bytes": 2 * 4 * N + 4,
+        "temp_bytes": 0, "peak_bytes": 3 * 4 * N + 4, "alias_bytes": 0}
+
+
+@pytest.mark.parametrize("dev", ["cpu", "meta"])
+def test_views_and_in_place_ops_add_nothing(dev):
+    """Views, in-place ops and an ``out=`` result into a held tensor reuse
+    a held storage: the peak stays the arguments'; the in-place writes
+    show as aliased bytes."""
+    x, y = torch.ones(8, N // 8, device=dev), torch.ones(N, device=dev)
+    with flops.OpCounter(hold=(x, y)) as c:
+        v = x.view(-1)[::2].unsqueeze(0)
+        x.t().mul_(2.0)
+        x.add_(1.0)
+        torch.add(v.reshape(-1)[:1], 1.0, out=y[:1])
+    assert c.peak_bytes == c.live_bytes == 2 * 4 * N
+    assert c.memory(v) == {"argument_bytes": 2 * 4 * N, "output_bytes": 0,
+                           "temp_bytes": 0, "peak_bytes": 2 * 4 * N,
+                           "alias_bytes": 2 * 4 * N}
+
+
+@pytest.mark.parametrize("dev", ["cpu", "meta"])
+def test_a_backwards_saved_tensors_count_until_it_frees_them(dev):
+    """y = 2x, z = sin(y), s = sum(z): sin saves y, so dropping the names y
+    and z leaves y live until the backward runs; the backward holds at most
+    x, y, s, its seed, cos(y) and y's gradient (4 x 4000 + 8 bytes), and
+    leaves x, its gradient and s."""
+    x = torch.ones(N, device=dev, requires_grad=True)
+    with flops.OpCounter(hold=x) as c:
+        y = x * 2
+        z = y.sin()
+        s = z.sum()
+        assert c.live_bytes == 3 * 4 * N + 4
+        del y, z
+        assert c.live_bytes == 2 * 4 * N + 4
+        s.backward()
+        live = c.live_bytes
+    assert live == 2 * 4 * N + 4 and x.grad is not None
+    assert c.peak_bytes == 4 * 4 * N + 8
+
+
+def _reduced(arch: str, remat: str = "none"):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch).reduced(), remat=remat)
+
+
+def _step_args(cfg, kind: str, dev: str):
+    """One step's function and arguments on ``dev``: the reduced model
+    (seeded on the CPU, its shapes alone on ``meta``), AdamW's state and a
+    batch for a train step, a batch for a prefill, an empty cache and a
+    token for a decode step."""
+    from repro_torch.models import init_model, params_shape
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import (make_prefill_step, make_serve_step,
+                                        make_train_step)
+
+    model = params_shape(cfg) if dev == "meta" else init_model(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    ids = torch.zeros((2, 32), dtype=torch.int64, device=dev)
+    if kind == "train":
+        ocfg = adamw.AdamWConfig()
+        opt = adamw.init(ocfg, dict(model.named_parameters()))
+        return make_train_step(cfg, ocfg), (model, opt, {
+            "tokens": ids, "labels": ids.clone()})
+    if kind == "prefill":
+        return make_prefill_step(cfg, scan_impl="chunked"), (
+            model, {"tokens": ids})
+    return make_serve_step(cfg), (model, tf.init_cache(cfg, 2, 32,
+                                                       device=dev), ids[:, :1])
+
+
+STEPS = [("train", "gemma3-4b", "none"), ("train", "gemma3-4b", "full"),
+         ("train", "falcon-mamba-7b", "none"),
+         ("train", "falcon-mamba-7b", "full"),
+         ("prefill", "gemma3-4b", "none"), ("prefill", "falcon-mamba-7b",
+                                            "none"),
+         ("decode", "gemma3-4b", "none"), ("decode", "falcon-mamba-7b",
+                                           "none")]
+
+
+@pytest.mark.parametrize("kind,arch,remat", STEPS,
+                         ids=["-".join(s) for s in STEPS])
+def test_meta_counts_the_memory_of_real_tensors(kind, arch, remat):
+    """One reduced step on ``meta`` counts the same memory, byte for byte,
+    as on real CPU tensors: a train step writes its parameters and moments
+    in place and returns its metrics and step count, a prefill returns its
+    logits, a decode step its logits and new cache entries."""
+    cfg = _reduced(arch, remat)
+    got = {}
+    for dev in ("cpu", "meta"):
+        step, args = _step_args(cfg, kind, dev)
+        with flops.OpCounter(hold=args) as c:
+            out = step(*args)
+        got[dev] = c.memory(out)
+    assert got["meta"] == got["cpu"]
+    mem = got["cpu"]
+    assert mem["peak_bytes"] > mem["argument_bytes"] > 0
+    assert mem["output_bytes"] > 0
+    assert mem["peak_bytes"] == mem["argument_bytes"] + mem["output_bytes"] \
+        + mem["temp_bytes"]
+    model = args[0]
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    if kind == "train":  # the parameters and both float32 moments
+        assert mem["alias_bytes"] == params + 2 * 4 * sum(
+            p.numel() for p in model.parameters())
+    elif kind == "decode":  # a KV cache is written in place; the mamba
+        # states are replaced by new tensors
+        assert mem["alias_bytes"] <= mem["argument_bytes"] - params
+        assert (mem["alias_bytes"] > 0) == (cfg.family != "ssm")
+    else:
+        assert mem["alias_bytes"] == 0
+
+
+@pytest.mark.parametrize("arch,remat", [("gemma3-4b", "none"),
+                                        ("falcon-mamba-7b", "full")])
+def test_chip_smokes_meta_count_holds_what_a_real_step_holds(arch, remat):
+    """``chip_smoke.train_step_counted``, to which the card's measured
+    peak is held, counts on ``meta`` what the counter gives a real CPU
+    step of the same configuration and batch: memory, flops and bytes."""
+    import chip_smoke
+    from repro_torch.optim import adamw
+
+    cfg = _reduced(arch, remat)
+    step, args = _step_args(cfg, "train", "cpu")
+    with flops.OpCounter(hold=args) as c:
+        out = step(*args)
+    got = chip_smoke.train_step_counted(cfg, adamw.AdamWConfig(), args[2])
+    assert got["memory"] == c.memory(out)
+    assert got["counts"] == c.counts()
 
 
 # --------------------------------------------------------------------------- #

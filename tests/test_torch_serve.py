@@ -12,11 +12,16 @@ the logits behind the tokens agree within 1e-4
 (``tests/test_torch_models.py``, ``tests/test_torch_ssm.py``)."""
 import dataclasses
 import functools
+import os
 import warnings
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

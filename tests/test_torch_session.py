@@ -11,16 +11,22 @@ The helpers here (script and state conversion) are shared with
 ``test_torch_platform.py``.
 """
 import dataclasses
+import os
 import random
 
 import pytest
 
-import repro_torch.core.ast as port_ast
-from repro.core import AAppScript, Affinity, Block, ClusterState, Invalidate
-from repro.core import Registry, SchedulerSession, TagPolicy
-from repro_torch.convert import state_from_snapshot
-from repro_torch.core import SchedulerSession as PortSession
-from tests.test_batched_equivalence import (
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+
+import repro_torch.core.ast as port_ast  # noqa: E402
+from repro.core import AAppScript, Affinity, Block, ClusterState, Invalidate  # noqa: E402
+from repro.core import Registry, SchedulerSession, TagPolicy  # noqa: E402
+from repro_torch.convert import state_from_snapshot  # noqa: E402
+from repro_torch.core import SchedulerSession as PortSession  # noqa: E402
+from tests.test_batched_equivalence import (  # noqa: E402
     TAGS,
     clone_state,
     random_cluster,

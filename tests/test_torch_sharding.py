@@ -21,6 +21,11 @@ from pathlib import Path
 
 import pytest
 
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+
 jax = pytest.importorskip("jax")
 from jax.sharding import AbstractMesh  # noqa: E402
 

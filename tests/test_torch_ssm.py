@@ -16,10 +16,15 @@ combine order.  Then the conversion of a bfloat16 model, which keeps the
 reference's float32 ``a_log`` and ``d_skip``."""
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

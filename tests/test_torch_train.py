@@ -18,13 +18,18 @@ near 0 that flips sign between two autodiffs would move a parameter by
 import ast
 import dataclasses
 import functools
+import os
 import shutil
 import tempfile
 from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

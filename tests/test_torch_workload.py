@@ -10,44 +10,50 @@ divide-et-impera workload, the wave-batched driver, ``run_config`` /
 ``replay_identical`` / ``whatif``, and ``chip_smoke``'s trace path (runs A
 and B) at a reduced cluster.
 """
+import os
 import random
 
 import pytest
 
-from benchmarks.affinity_case_study import AAPP_SCRIPT
-from repro.cluster.divide_impera import DivideImperaWorkload as RefDivide
-from repro.cluster.simulator import ClusterSim as RefSim
-from repro.cluster.simulator import SimParams as RefParams
-from repro.cluster.topology import paper_testbed as ref_testbed
-from repro.core import SchedulerSession as RefSession
-from repro.core import parse as ref_parse
-from repro.core import try_schedule as ref_try_schedule
-from repro.platform import Platform as RefPlatform
-from repro.pool import StartCosts as RefStartCosts
-from repro.pool import WarmPool as RefWarmPool
-from repro.pool import make_policy as ref_make_policy
-from repro.workload import Arrival as RefArrival
-from repro.workload import ReplayConfig as RefConfig
-from repro.workload import TraceWorkload as RefWorkload
-from repro.workload import build_trace as ref_build_trace
-from repro.workload import register_functions as ref_register
-from repro.workload import run_config as ref_run_config
-from repro.workload import whatif as ref_whatif
-from repro.workload.replay import chrome_trace as ref_chrome_trace
-from repro_torch.cluster.divide_impera import DivideImperaWorkload
-from repro_torch.cluster.simulator import ClusterSim, SimParams
-from repro_torch.cluster.topology import paper_testbed
-from repro_torch.core import SchedulerSession, parse, try_schedule
-from repro_torch.platform import Platform
-from repro_torch.pool import StartCosts, WarmPool, make_policy
-from repro_torch.workload import (COMPUTE_S, SCENARIOS, Arrival, ReplayConfig,
+torch = pytest.importorskip("torch")
+# torch's intra-op threads: this pytest-xdist worker's share of the cores
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+
+from benchmarks.affinity_case_study import AAPP_SCRIPT  # noqa: E402
+from repro.cluster.divide_impera import DivideImperaWorkload as RefDivide  # noqa: E402
+from repro.cluster.simulator import ClusterSim as RefSim  # noqa: E402
+from repro.cluster.simulator import SimParams as RefParams  # noqa: E402
+from repro.cluster.topology import paper_testbed as ref_testbed  # noqa: E402
+from repro.core import SchedulerSession as RefSession  # noqa: E402
+from repro.core import parse as ref_parse  # noqa: E402
+from repro.core import try_schedule as ref_try_schedule  # noqa: E402
+from repro.platform import Platform as RefPlatform  # noqa: E402
+from repro.pool import StartCosts as RefStartCosts  # noqa: E402
+from repro.pool import WarmPool as RefWarmPool  # noqa: E402
+from repro.pool import make_policy as ref_make_policy  # noqa: E402
+from repro.workload import Arrival as RefArrival  # noqa: E402
+from repro.workload import ReplayConfig as RefConfig  # noqa: E402
+from repro.workload import TraceWorkload as RefWorkload  # noqa: E402
+from repro.workload import build_trace as ref_build_trace  # noqa: E402
+from repro.workload import register_functions as ref_register  # noqa: E402
+from repro.workload import run_config as ref_run_config  # noqa: E402
+from repro.workload import whatif as ref_whatif  # noqa: E402
+from repro.workload.replay import chrome_trace as ref_chrome_trace  # noqa: E402
+from repro_torch.cluster.divide_impera import DivideImperaWorkload  # noqa: E402
+from repro_torch.cluster.simulator import ClusterSim, SimParams  # noqa: E402
+from repro_torch.cluster.topology import paper_testbed  # noqa: E402
+from repro_torch.core import SchedulerSession, parse, try_schedule  # noqa: E402
+from repro_torch.platform import Platform  # noqa: E402
+from repro_torch.pool import StartCosts, WarmPool, make_policy  # noqa: E402
+from repro_torch.workload import (COMPUTE_S, SCENARIOS, Arrival, ReplayConfig,  # noqa: E402
                                   TraceWorkload, build_trace,
                                   register_functions, replay_identical,
                                   run_config, validate_replay_timeline,
                                   whatif)
-from repro_torch.workload.replay import chrome_trace
+from repro_torch.workload.replay import chrome_trace  # noqa: E402
 
-import chip_smoke
+import chip_smoke  # noqa: E402
 
 # tests/test_simulator_engines.py's script: every tag random (rng draws on
 # every decision), i affine to d

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Phases 18 and 19 of ``chip_smoke.py`` alone, on one NVIDIA card.
+"""Phases 17 to 19 of ``chip_smoke.py`` alone, on one NVIDIA card.
 
-    python3 tools/chip_phases_18_19.py
+    python3 tools/chip_phases_17_19.py
 
 Starts the three full-size dry runs in the background (``chip_smoke.
-start_dryruns``), then on the card: the oracle against one gemma3-4b and
-one falcon-mamba-7b prefill, phase 17's train step counted on ``meta``,
-the (1, 1) DTensor prefill, and phase 19's training (``ssm_train_path``);
-then collects the dry runs.  Each part prints one JSON line, or its
+start_dryruns``), then on the card: phase 17's training (``train_path``:
+gemma3-4b whole, its step's peak counted on ``meta`` and measured), the
+oracle against one gemma3-4b and one falcon-mamba-7b prefill, phase 17's
+counted train step priced, the (1, 1) DTensor prefill, and phase 19's
+training (``ssm_train_path``, its peak counted and measured as phase
+17's); then collects the dry runs.  Each part prints one JSON line, or its
 traceback, and the next part runs all the same; the exit code is 1 if any
 part failed.  No kernel is built: none of these parts launches one.
 """
@@ -58,14 +60,21 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
 
+    train = {}
+    part("training", lambda: train.update(cs.train_path()) or train)
+    if train:
+        print(cs.peak_line(train["whole"], card), flush=True)
     part("oracle gemma3-4b", lambda: cs.oracle_vs_card(cs.GEMMA3_4B, 31))
     part("oracle falcon-mamba-7b", lambda: cs.oracle_vs_card(
         cs.FALCON_MAMBA_7B, 32, scan_impl="chunked"))
-    part("train-step bound", lambda: cs.train_step_counted_bound(
-        cs.GEMMA3_4B))
+    if train:
+        part("train-step bound", lambda: cs.train_step_counted_bound(
+            train["whole"]))
     part("DTensor prefill", lambda: cs.dtensor_prefill(cs.GEMMA3_4B))
-    torch.cuda.reset_peak_memory_stats()
-    part("ssm training", cs.ssm_train_path)
+    ssm = {}
+    part("ssm training", lambda: ssm.update(cs.ssm_train_path()) or ssm)
+    if ssm:
+        print(cs.peak_line(ssm["whole"], card), flush=True)
     part("dry runs", lambda: cs.collect_dryruns(procs, out, started))
     print(card)
     return 1 if failed else 0
