@@ -342,6 +342,8 @@ def main(argv=None):
                     help="the mesh's device type (nothing runs on it)")
     ap.add_argument("--subprocess", action="store_true",
                     help="run each cell in a fresh process")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="with --subprocess, the cells run at once")
     ap.add_argument("--set", action="append", default=[],
                     help="config override key=value (e.g. attn_chunk=1024)")
     args = ap.parse_args(argv)
@@ -352,52 +354,72 @@ def main(argv=None):
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
+    todo = [(a, s, mp) for a, s in cells(archs, shapes) for mp in meshes]
+    if args.subprocess:
+        return _run_in_subprocesses(todo, args, out_dir)
 
     overrides = parse_overrides(args.set)
-
     failures = 0
-    for a, s in cells(archs, shapes):
-        for mp in meshes:
+    for a, s, mp in todo:
+        tag = f"{a}_{s}_{'multi' if mp else 'single'}"
+        path = out_dir / f"{tag}.json"
+        try:
+            rec = run_cell(a, s, mp, reduced=args.reduced,
+                           overrides=overrides, device=args.device)
+        except Exception:  # the record carries the traceback
+            rec = {"arch": a, "shape": s,
+                   "mesh": "2x32x8" if mp else "32x8",
+                   "status": "error", "traceback": traceback.format_exc()}
+            failures += 1
+        path.write_text(json.dumps(rec, indent=1, default=float))
+        if rec["status"] == "ok":
+            r = rec["roofline"]
+            print(f"[{tag}] ok trace={rec['trace_s']}s "
+                  f"peak={rec['memory']['peak_bytes'] / 1e9:.3f}GB "
+                  f"compute={r['compute_s']*1e3:.2f}ms "
+                  f"memory={r['memory_s']*1e3:.2f}ms "
+                  f"collective={r['collective_s']*1e3:.2f}ms "
+                  f"dominant={r['dominant']} "
+                  f"useful={rec['useful_flops_ratio']:.2f}")
+        elif rec["status"] == "skipped":
+            print(f"[{tag}] SKIP: {rec['why']}")
+        else:
+            print(f"[{tag}] ERROR (see {path})")
+    return 1 if failures else 0
+
+
+def _run_in_subprocesses(todo, args, out_dir: Path) -> int:
+    """Each ``(arch, shape, multi)`` of ``todo`` in a fresh process,
+    ``args.jobs`` at once, its output in ``<tag>.log`` beside its record;
+    prints each one's last lines as it ends and returns 1 if any failed."""
+    waiting, running, failures = list(todo), {}, 0
+    while waiting or running:
+        while waiting and len(running) < max(1, args.jobs):
+            a, s, mp = waiting.pop(0)
             tag = f"{a}_{s}_{'multi' if mp else 'single'}"
-            path = out_dir / f"{tag}.json"
-            if args.subprocess:
-                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                       "--arch", a, "--shape", s, "--mesh",
-                       "multi" if mp else "single", "--out", str(out_dir),
-                       "--device", args.device]
-                if args.reduced:
-                    cmd.append("--reduced")
-                for kv in args.set:
-                    cmd += ["--set", kv]
-                r = subprocess.run(cmd, capture_output=True, text=True)
-                tail = "\n".join(r.stdout.splitlines()[-3:])
-                print(f"[{tag}] rc={r.returncode} {tail}")
-                if r.returncode != 0:
-                    failures += 1
-                    print(r.stderr[-2000:])
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", a, "--shape", s, "--mesh",
+                   "multi" if mp else "single", "--out", str(out_dir),
+                   "--device", args.device]
+            if args.reduced:
+                cmd.append("--reduced")
+            for kv in args.set:
+                cmd += ["--set", kv]
+            with open(out_dir / f"{tag}.log", "w") as log:
+                running[tag] = subprocess.Popen(cmd, stdout=log,
+                                                stderr=subprocess.STDOUT)
+        time.sleep(0.2)
+        for tag, proc in list(running.items()):
+            if proc.poll() is None:
                 continue
-            try:
-                rec = run_cell(a, s, mp, reduced=args.reduced,
-                               overrides=overrides, device=args.device)
-            except Exception:  # the record carries the traceback
-                rec = {"arch": a, "shape": s,
-                       "mesh": "2x32x8" if mp else "32x8",
-                       "status": "error", "traceback": traceback.format_exc()}
+            del running[tag]
+            lines = (out_dir / f"{tag}.log").read_text().splitlines()
+            ours = [x for x in lines if x.startswith(f"[{tag}]")]
+            print(f"[{tag}] rc={proc.returncode} "
+                  + "\n".join(ours or lines[-3:]), flush=True)
+            if proc.returncode != 0:
                 failures += 1
-            path.write_text(json.dumps(rec, indent=1, default=float))
-            if rec["status"] == "ok":
-                r = rec["roofline"]
-                print(f"[{tag}] ok trace={rec['trace_s']}s "
-                      f"peak={rec['memory']['peak_bytes'] / 1e9:.3f}GB "
-                      f"compute={r['compute_s']*1e3:.2f}ms "
-                      f"memory={r['memory_s']*1e3:.2f}ms "
-                      f"collective={r['collective_s']*1e3:.2f}ms "
-                      f"dominant={r['dominant']} "
-                      f"useful={rec['useful_flops_ratio']:.2f}")
-            elif rec["status"] == "skipped":
-                print(f"[{tag}] SKIP: {rec['why']}")
-            else:
-                print(f"[{tag}] ERROR (see {path})")
+                print("\n".join(lines[-30:]), flush=True)
     return 1 if failures else 0
 
 

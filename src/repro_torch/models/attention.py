@@ -17,6 +17,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding.ctx import (is_dtensor, shards, sum_partials,
+                                     unflatten)
+
 NEG_INF = -1e30
 
 
@@ -178,23 +181,63 @@ def attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
 # --------------------------------------------------------------------------- #
 
 
+def _decode_q(q, k_cache):
+    """The scaled query [B, 1, H, hd] as float32 [B, K, G, hd], K the
+    cache's kv heads.  On DTensors q first takes the cache's layout (its
+    batch split, its head_dim split over the model axis, the heads whole),
+    so the score product contracts a split head_dim into partial sums,
+    which the callers reduce whole (``sum_partials``).  The explicit
+    choice: split over the heads, q cannot follow 4 kv heads over a model
+    axis of 8, and its reshape into groups makes a strided shard; left
+    partial, the scores' softmax splits the heads over the model axis,
+    which the values' split head_dim does not match.  DTensor plans every
+    candidate strategy of a product on such layouts by a graph search,
+    50-100 ms each on a 3-D mesh (minutes a decode step)."""
+    _, _, K, hd = k_cache.shape
+    q = _scaled_q(q, hd)
+    if is_dtensor(q) and is_dtensor(k_cache):
+        from torch.distributed.tensor import Replicate
+
+        q = q.redistribute(q.device_mesh, [
+            p if p.is_shard(0) or p.is_shard(3) else Replicate()
+            for p in k_cache.placements])
+    return unflatten(q[:, 0], 1, (K, q.shape[2] // K)).float()
+
+
+def _decode_out(out, dtype):
+    """[B, K, G, hd] float32 -> [B, 1, H, hd] in ``dtype``.  On a DTensor
+    whose head_dim the model axis splits (the decode caches' layout), the
+    split moves to the heads (an all-to-all of one token's output; a
+    gather where the shards do not divide the heads): the caller's merge
+    of heads and head_dim would otherwise make a strided shard, which
+    ``wo``'s row shards do not match and for which DTensor plans every
+    candidate strategy by a graph search, ~50 ms each on a 3-D mesh."""
+    out = out.flatten(1, 2)
+    if is_dtensor(out) and shards(out, 2) > 1:
+        from torch.distributed.tensor import Replicate, Shard
+
+        n = shards(out, 1) * shards(out, 2)
+        to = Shard(1) if out.shape[1] % n == 0 else Replicate()
+        out = out.redistribute(out.device_mesh, [
+            to if p.is_shard(2) else p for p in out.placements])
+    return out[:, None].to(dtype)
+
+
 def decode_attention(q, k_cache, v_cache, pos: int, *, slot_pos=None):
     """q [B,1,H,hd]; caches [B,Smax,K,hd]; ``pos`` = index of the new token.
     ``slot_pos`` [Smax] gives the absolute position stored in each cache
     slot (ring buffers); defaults to iota for linear caches."""
-    B, Smax, K, hd = k_cache.shape
-    H = q.shape[2]
-    G = H // K
+    Smax = k_cache.shape[1]
     if slot_pos is None:
         slot_pos = torch.arange(Smax, dtype=torch.int32, device=q.device)
-    qf = _scaled_q(q, hd).reshape(B, K, G, hd).float()
-    s = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float())
+    qf = _decode_q(q, k_cache)
+    s = sum_partials(torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float()))
     ok = slot_pos <= pos
     s = torch.where(ok[None, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    return _decode_out(out, q.dtype)
 
 
 def decode_attention_buffered(q, k_cache, v_cache, kb, vb, cache_len: int,
@@ -205,14 +248,11 @@ def decode_attention_buffered(q, k_cache, v_cache, kb, vb, cache_len: int,
     kb/vb [B,BUF,K,hd] hold positions [cache_len, cache_len+BUF); ``pos`` is
     the current token's position (attends to everything <= pos).
     """
-    B, L, K, hd = k_cache.shape
-    BUF = kb.shape[1]
-    H = q.shape[2]
-    G = H // K
+    L, BUF = k_cache.shape[1], kb.shape[1]
     dev = q.device
-    qf = _scaled_q(q, hd).reshape(B, K, G, hd).float()
-    s1 = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float())
-    s2 = torch.einsum("bkgh,bskh->bkgs", qf, kb.float())
+    qf = _decode_q(q, k_cache)
+    s1 = sum_partials(torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float()))
+    s2 = sum_partials(torch.einsum("bkgh,bskh->bkgs", qf, kb.float()))
     ok1 = torch.arange(L, dtype=torch.int32, device=dev) < cache_len
     ok2 = cache_len + torch.arange(BUF, dtype=torch.int32, device=dev) <= pos
     s1 = torch.where(ok1[None, None, None, :], s1,
@@ -228,7 +268,7 @@ def decode_attention_buffered(q, k_cache, v_cache, kb, vb, cache_len: int,
     o = o + torch.einsum("bkgs,bskh->bkgh", e2.to(vb.dtype).float(),
                          vb.float())
     o = o / torch.clamp(l, min=1e-30)[..., None]
-    return o.reshape(B, 1, H, hd).to(q.dtype)
+    return _decode_out(o, q.dtype)
 
 
 def _write_slot(cache, new, slot: int) -> None:
@@ -272,11 +312,11 @@ def attention_on_shards(q, k, v, q_pos, kv_pos, **kw):
     (the mesh's data axes) and q heads (the model axis), with the kv heads
     those q heads read, under ``local_map``; q, k and v are redistributed
     to that layout first (k and v whole over the model axis)."""
-    from repro_torch.sharding.ctx import by_axis, data_model_sizes, is_dtensor
+    from repro_torch.sharding.ctx import by_axis, data_model_sizes
 
     if not is_dtensor(q):
         return attention(q, k, v, q_pos, kv_pos, **kw)
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
@@ -299,7 +339,11 @@ def attention_on_shards(q, k, v, q_pos, kv_pos, **kw):
             k, v = k[:, :, lo:hi], v[:, :, lo:hi]
         return attention(q, k, v, q_pos, kv_pos, **kw)
 
+    # with the heads split, each rank's k and v gradients are partial sums
+    # over the q heads it holds
+    kv_grad = by_axis(mesh, batch, Partial() if by_head else Replicate())
     return local_map(local, out_placements=list(q_pl),
                      in_placements=(q_pl, kv_pl, kv_pl, None, None),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad, None, None),
                      device_mesh=mesh, redistribute_inputs=True)(
         q, k, v, q_pos, kv_pos)

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.ctx import shard, unflatten
+from repro_torch.sharding.ctx import project, shard, unflatten
 
 from .attention import (attention_on_shards, cache_insert,
                         decode_attention)
@@ -102,7 +102,7 @@ def _enc_layer(cfg: ModelConfig, layer: EncLayer, x, positions, impl):
     k = apply_rope(k, positions, cfg.rope_theta)
     y = attention_on_shards(q, k, v, positions, positions, causal=False,
                             impl=impl, chunk=cfg.attn_chunk)
-    x = x + y.reshape(B, S, -1) @ layer.attn.wo
+    x = x + project(y.reshape(B, S, -1), layer.attn.wo)
     x = shard(x, "act_btd")
     return shard(x + layer.mlp(layer.ln2(x)), "act_btd")
 
@@ -125,8 +125,9 @@ def encode(cfg: ModelConfig, model: EncDec, frames, *, impl=None):
 
 def _cross_kv(cfg: ModelConfig, layer: DecLayer, enc_out):
     hd = cfg.resolved_head_dim
-    return (unflatten(enc_out @ layer.cross.wk, -1, (cfg.n_kv_heads, hd)),
-            unflatten(enc_out @ layer.cross.wv, -1, (cfg.n_kv_heads, hd)))
+    K = cfg.n_kv_heads
+    return (unflatten(project(enc_out, layer.cross.wk), -1, (K, hd)),
+            unflatten(project(enc_out, layer.cross.wv), -1, (K, hd)))
 
 
 def _dec_layer(cfg: ModelConfig, layer: DecLayer, x, enc_out, positions,
@@ -150,9 +151,10 @@ def _dec_layer(cfg: ModelConfig, layer: DecLayer, x, enc_out, positions,
         k = apply_rope(k, posv, cfg.rope_theta)
         kc, vc = cache_insert(lc["k"], lc["v"], k, v, pos)
         y = decode_attention(q, kc, vc, pos)
-    x = x + y.reshape(B, S, -1) @ layer.attn.wo
+    x = x + project(y.reshape(B, S, -1), layer.attn.wo)
 
-    cq = unflatten(layer.ln2(x) @ layer.cross.wq, -1, (cfg.n_heads, hd))
+    cq = unflatten(project(layer.ln2(x), layer.cross.wq), -1,
+                   (cfg.n_heads, hd))
     if lc is None:
         ck, cv = _cross_kv(cfg, layer, enc_out)
         y = attention_on_shards(cq, ck, cv, positions,
@@ -162,7 +164,7 @@ def _dec_layer(cfg: ModelConfig, layer: DecLayer, x, enc_out, positions,
     else:
         Se = lc["cross_k"].shape[1]
         y = decode_attention(cq, lc["cross_k"], lc["cross_v"], Se - 1)
-    x = x + y.reshape(B, S, -1) @ layer.cross.wo
+    x = x + project(y.reshape(B, S, -1), layer.cross.wo)
     return shard(x + layer.mlp(layer.ln3(x)), "act_btd")
 
 
@@ -232,5 +234,5 @@ def encdec_decode_step(cfg: ModelConfig, model: EncDec, cache, token):
     for layer, lc in zip(model.dec, cache["layers"]):
         x = _dec_layer(cfg, layer, x, None, None, "direct", pos=pos, lc=lc)
     x = model.final_norm(x)
-    logits = shard((x @ model.lm_head).float()[:, 0], "logits_bv")
+    logits = shard(project(x, model.lm_head).float()[:, 0], "logits_bv")
     return logits, {**cache, "pos": pos + 1}

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.sharding.ctx import is_dtensor
+from repro_torch.sharding.ctx import is_dtensor, project
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -108,12 +108,12 @@ class MLP(nn.Module):
 
     def forward(self, x):
         if self.mlp_type == "swiglu":
-            g = x @ self.w_gate
-            u = x @ self.w_up
-            return (F.silu(g.float()).to(x.dtype) * u) @ self.w_down
-        h = x @ self.w_up + self.b_up
+            g = project(x, self.w_gate)
+            u = project(x, self.w_up)
+            return project(F.silu(g.float()).to(x.dtype) * u, self.w_down)
+        h = project(x, self.w_up) + self.b_up
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        return h @ self.w_down + self.b_down
+        return project(h, self.w_down) + self.b_down
 
 
 # --------------------------------------------------------------------------- #

@@ -72,30 +72,12 @@ def moe_ffn(moe: MoE, x, spec: MoESpec, mlp_type: str):
     xg = unflatten(xf, 0, (G, g))
     xg = shard(xg, "moe_tokens")  # [G('data'), n, D]
 
-    E, k = spec.n_experts, spec.top_k
+    k = spec.top_k
     cap = _capacity(spec, g)
 
     logits = torch.einsum("gnd,de->gne", xg.float(), moe.router)
     probs = torch.softmax(logits, dim=-1)  # [G, n, E]
-    top_p, top_i = _top_k(probs, k)  # [G, n, k]
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-
-    # position-in-expert per routing choice, processed in priority order
-    counts = torch.zeros((G, 1, E), dtype=torch.float32, device=x.device)
-    dispatch = torch.zeros((G, g, E, cap), dtype=x.dtype, device=x.device)
-    combine = torch.zeros((G, g, E, cap), dtype=torch.float32,
-                          device=x.device)
-    for j in range(k):
-        oh = F.one_hot(top_i[..., j], E).float()  # [G, n, E]
-        pos = torch.cumsum(oh, dim=1) - oh + counts  # prior occupancy
-        keep = oh * (pos < cap)
-        counts = counts + keep.sum(dim=1, keepdim=True)
-        # a kept choice's slot is below cap; a dropped one's is 0, and its
-        # keep row is zero
-        slot = F.one_hot((pos * keep).sum(-1).long(), cap).float()
-        sel = keep[..., None] * slot[..., None, :]  # [G, n, E, cap]
-        dispatch = dispatch + sel.to(x.dtype)
-        combine = combine + sel * top_p[..., j][..., None, None]
+    dispatch, combine = routing_on_shards(probs, k, cap, x.dtype)
 
     dispatch = shard(dispatch, "moe_dispatch")
     combine = shard(combine, "moe_dispatch")
@@ -108,7 +90,61 @@ def moe_ffn(moe: MoE, x, spec: MoESpec, mlp_type: str):
     out = out.reshape(-1, D)
     if pad:
         out = out[:N]
-    return out.reshape(B, S, D)
+    return unflatten(out, 0, (B, S))
+
+
+def _routing(probs, k: int, cap: int, dtype):
+    """Capacity-dropped top-``k`` routing of each group's tokens:
+    probs [G, n, E] -> (dispatch [G, n, E, cap] in ``dtype``, combine
+    [G, n, E, cap] float32).  Each choice j of every token is placed in
+    priority order after the groups' earlier choices."""
+    G, g, E = probs.shape
+    top_p, top_i = _top_k(probs, k)  # [G, n, k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # position-in-expert per routing choice, processed in priority order
+    counts = torch.zeros((G, 1, E), dtype=torch.float32, device=probs.device)
+    dispatch = torch.zeros((G, g, E, cap), dtype=dtype, device=probs.device)
+    combine = torch.zeros((G, g, E, cap), dtype=torch.float32,
+                          device=probs.device)
+    for j in range(k):
+        oh = F.one_hot(top_i[..., j], E).float()  # [G, n, E]
+        pos = torch.cumsum(oh, dim=1) - oh + counts  # prior occupancy
+        keep = oh * (pos < cap)
+        counts = counts + keep.sum(dim=1, keepdim=True)
+        # a kept choice's slot is below cap; a dropped one's is 0, and its
+        # keep row is zero
+        slot = F.one_hot((pos * keep).sum(-1).long(), cap).float()
+        sel = keep[..., None] * slot[..., None, :]  # [G, n, E, cap]
+        dispatch = dispatch + sel.to(dtype)
+        combine = combine + sel * top_p[..., j][..., None, None]
+    return dispatch, combine
+
+
+def routing_on_shards(probs, k: int, cap: int, dtype):
+    """:func:`_routing`.  On plain tensors, the call itself.  On DTensors
+    (the dry run's sharded step) each rank routes its own groups (the data
+    axes) under ``local_map``, every expert of them: the routing never
+    mixes groups, and its zeros, one-hots and [G, n, E, cap] tensors are
+    then made at the local group count, not the global one on every rank.
+    The model axis holds the same routing on each of its ranks, and the
+    caller's ``shard`` splits the experts from it without a collective."""
+    from repro_torch.sharding.ctx import by_axis, data_model_sizes, is_dtensor
+
+    if not is_dtensor(probs):
+        return _routing(probs, k, cap, dtype)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = probs.device_mesh
+    n_data, _ = data_model_sizes(mesh)
+    groups = by_axis(mesh, Shard(0) if probs.shape[0] % n_data == 0
+                     else Replicate(), Replicate())
+    return local_map(
+        lambda p: _routing(p, k, cap, dtype),
+        out_placements=(list(groups), list(groups)),
+        in_placements=(groups,), device_mesh=mesh,
+        redistribute_inputs=True)(probs)
 
 
 def _experts(dispatch, combine, xg, w_up, w_down, w_gate=None, *,
@@ -147,14 +183,21 @@ def experts_on_shards(dispatch, combine, xg, *weights, mlp_type: str):
 
     mesh = xg.device_mesh
     n_data, m = data_model_sizes(mesh)
-    group = Shard(0) if xg.shape[0] % n_data == 0 else Replicate()
+    by_group = xg.shape[0] % n_data == 0
+    group = Shard(0) if by_group else Replicate()
     by_expert = m > 1 and dispatch.shape[2] % m == 0
     sel = by_axis(mesh, group, Shard(2) if by_expert else Replicate())
     rows = by_axis(mesh, group, Replicate())
     w_pl = by_axis(mesh, Replicate(), Shard(0) if by_expert else Replicate())
     out = by_axis(mesh, group, Partial() if by_expert else Replicate())
+    # the tokens meet every expert, the weights every group: the ranks that
+    # split those each hold a partial sum of their gradients
+    rows_grad = by_axis(mesh, group, Partial() if by_expert else Replicate())
+    w_grad = by_axis(mesh, Partial() if by_group else Replicate(),
+                     Shard(0) if by_expert else Replicate())
     return local_map(
         lambda *t: _experts(*t, mlp_type=mlp_type), out_placements=list(out),
         in_placements=(sel, sel, rows) + (w_pl,) * len(weights),
+        in_grad_placements=(sel, sel, rows_grad) + (w_grad,) * len(weights),
         device_mesh=mesh, redistribute_inputs=True)(
         dispatch, combine, xg, *weights)

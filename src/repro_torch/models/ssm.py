@@ -30,7 +30,8 @@ from torch import nn
 from repro_torch.configs.base import SSMSpec
 from repro_torch.kernels import mamba_scan as ms
 
-from repro_torch.sharding.ctx import shard, sum_partials
+from repro_torch.sharding.ctx import (gathered, is_dtensor, project, shard,
+                                     shards, sum_partials, unflatten)
 
 from .layers import const_param, dtype_of, normal_param
 
@@ -82,14 +83,83 @@ def causal_conv(x, w, b, conv_state=None):
     return y.to(x.dtype), new_state
 
 
+def conv_on_shards(x, w, b, conv_state=None):
+    """:func:`causal_conv`.  On plain tensors, the call itself.  On
+    DTensors (the dry run's sharded step) each rank convolves its own batch
+    rows (the data axes) and channels (the model axis) under ``local_map``,
+    the sequence made whole first: the conv never mixes rows or channels,
+    and its zero context and float32 accumulator are then local, where
+    ``torch.zeros`` of ``x``'s shape would be a tensor of the global shape
+    on every rank."""
+    if not is_dtensor(x):
+        return causal_conv(x, w, b, conv_state)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+            for p in x.placements]
+    chan = [Shard(0) if p.is_shard(2) else Replicate() for p in rows]
+    # the ranks that split the rows each hold a partial sum of w's and b's
+    # gradients
+    chan_grad = [Partial() if p.is_shard(0) else c
+                 for p, c in zip(rows, chan)]
+    state = [Shard(1) if p.is_shard(2) else p for p in rows]
+    state_in = state if conv_state is not None else None
+    return local_map(
+        causal_conv, out_placements=(rows, state if w.shape[-1] > 1
+                                     else None),
+        in_placements=(rows, chan, chan, state_in),
+        in_grad_placements=(rows, chan_grad, chan_grad, state_in),
+        device_mesh=x.device_mesh, redistribute_inputs=True)(
+        x, w, b, conv_state)
+
+
+def softplus_on_shards(x):
+    """``F.softplus(x)``, elementwise, on each rank's own shard of a
+    DTensor under ``local_map`` (its partial sums reduced first).  The
+    explicit choice: DTensor's decomposition of softplus differs between
+    PyTorch versions, and in some it makes float32 tensors of the global
+    shape on every rank."""
+    if not is_dtensor(x):
+        return F.softplus(x)
+    from torch.distributed.tensor.experimental import local_map
+
+    x = sum_partials(x)
+    return local_map(F.softplus, out_placements=list(x.placements),
+                     in_placements=(tuple(x.placements),),
+                     device_mesh=x.device_mesh)(x)
+
+
+def _in_proj(x, w):
+    """``project(x, w).chunk(2, -1)``: the conv's input and the gate.  On
+    a DTensor whose ``w`` columns the model axis splits, the two halves'
+    columns lie on different ranks (the first half of them hold the conv
+    input's), and DTensor splits the product only by gathering its
+    channels whole on every rank.  The explicit choice, where the rows
+    outnumber d_model (prefill, training): the weight is gathered instead
+    and each half split anew over the model axis, d_model x 2 d_inner
+    elements in place of rows x 2 d_inner; a decode step's few rows are
+    gathered as before."""
+    m, half = shards(w, 1), w.shape[1] // 2
+    if m == 1 or half % m or math.prod(x.shape[:-1]) <= w.shape[0]:
+        return project(x, w).chunk(2, dim=-1)
+    from torch.distributed.tensor import Shard
+
+    halves = unflatten(gathered(w), 1, (2, half))  # the columns gathered
+    halves = halves.redistribute(halves.device_mesh, [
+        Shard(2) if name == "model" else p for name, p in
+        zip(halves.device_mesh.mesh_dim_names, halves.placements)])
+    return x @ halves[:, 0], x @ halves[:, 1]
+
+
 def _ssm_inputs(m: Mamba, x, spec: SSMSpec, conv_state=None):
     """The projections both paths share: (xc, z, dt f32, b, c, a f32, new
     conv state), as the reference builds them."""
     D = x.shape[-1]
     N = spec.d_state
     dtr = spec.resolved_dt_rank(D)
-    xr, z = (x @ m.in_proj).chunk(2, dim=-1)
-    xc, new_conv = causal_conv(xr, m.conv_w, m.conv_b, conv_state)
+    xr, z = _in_proj(x, m.in_proj)
+    xc, new_conv = conv_on_shards(xr, m.conv_w, m.conv_b, conv_state)
     xc = F.silu(xc.float()).to(x.dtype)
     if conv_state is None:  # prefill / train, where the reference constrains
         xc = shard(xc, "act_bti")
@@ -100,7 +170,7 @@ def _ssm_inputs(m: Mamba, x, spec: SSMSpec, conv_state=None):
     dt_raw, b_ssm, c_ssm = proj.split([dtr, N, N], dim=-1)
     # softplus: the reference's logaddexp(x, 0); torch's thresholds at 20,
     # where the two differ by less than 2e-9
-    dt = F.softplus((dt_raw @ m.dt_w).float() + m.dt_b.float())
+    dt = softplus_on_shards((dt_raw @ m.dt_w).float() + m.dt_b.float())
     a = -torch.exp(m.a_log)
     return xc, z, dt, b_ssm, c_ssm, a, new_conv
 
@@ -202,20 +272,27 @@ def scan_on_shards(xc, dt, b_ssm, c_ssm, a, **kw):
 
     if not is_dtensor(xc):
         return _scan_chunked(xc, dt, b_ssm, c_ssm, a, **kw)
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = xc.device_mesh
     n_data, m = data_model_sizes(mesh)
-    batch = Shard(0) if xc.shape[0] % n_data == 0 else Replicate()
+    by_row = xc.shape[0] % n_data == 0
+    batch = Shard(0) if by_row else Replicate()
     by_chan = xc.shape[2] % m == 0
     chan = by_axis(mesh, batch, Shard(2) if by_chan else Replicate())
     rows = by_axis(mesh, batch, Replicate())
     a_pl = by_axis(mesh, Replicate(), Shard(0) if by_chan else Replicate())
+    # b and c feed every channel, a every row: the ranks that split those
+    # each hold a partial sum of their gradients
+    rows_grad = by_axis(mesh, batch, Partial() if by_chan else Replicate())
+    a_grad = by_axis(mesh, Partial() if by_row else Replicate(),
+                     Shard(0) if by_chan else Replicate())
     return local_map(
         lambda *t: _scan_chunked(*t, **kw), out_placements=list(chan),
-        in_placements=(chan, chan, rows, rows, a_pl), device_mesh=mesh,
-        redistribute_inputs=True)(xc, dt, b_ssm, c_ssm, a)
+        in_placements=(chan, chan, rows, rows, a_pl),
+        in_grad_placements=(chan, chan, rows_grad, rows_grad, a_grad),
+        device_mesh=mesh, redistribute_inputs=True)(xc, dt, b_ssm, c_ssm, a)
 
 
 def mamba_forward(m: Mamba, x, spec: SSMSpec, *, scan_impl: str = "kernel",
@@ -240,7 +317,7 @@ def mamba_forward(m: Mamba, x, spec: SSMSpec, *, scan_impl: str = "kernel",
     y = y + m.d_skip * xc.float()
     # cast before out_proj: bf16 partial-sum all-reduces are half the traffic
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ m.out_proj
+    return project(y, m.out_proj)
 
 
 def mamba_decode_step(m: Mamba, x, state: Tuple, spec: SSMSpec):
@@ -256,7 +333,7 @@ def mamba_decode_step(m: Mamba, x, state: Tuple, spec: SSMSpec):
     y = (h_new * c_ssm[:, 0, None, :].float()).sum(-1)
     y = y + m.d_skip * xc0
     y = (y * F.silu(z[:, 0].float())).to(x.dtype)
-    return (y @ m.out_proj)[:, None, :], (new_conv, h_new)
+    return project(y, m.out_proj)[:, None, :], (new_conv, h_new)
 
 
 def init_mamba_state(B: int, d_model: int, spec: SSMSpec, dtype, device):

@@ -22,7 +22,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.ctx import shard, shards, unflatten
+from repro_torch.sharding.ctx import (is_dtensor, project, shard, shards,
+                                     sum_partials, unflatten)
 
 from .attention import (attention_on_shards, cache_insert, decode_attention,
                         decode_attention_buffered, ring_insert,
@@ -62,7 +63,8 @@ class Attention(nn.Module):
 
     def qkv(self, x):
         B, S, _ = x.shape
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        q = project(x, self.wq)
+        k, v = project(x, self.wk), project(x, self.wv)
         if self.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         hd = self.head_dim
@@ -168,7 +170,7 @@ def _apply_layer(cfg: ModelConfig, layer: Layer, x, positions, impl,
                                 chunk=cfg.attn_chunk,
                                 q_block=cfg.attn_q_block)
         y = shard(y, "attn_out")
-        y = y.reshape(B, S, -1) @ layer.attn.wo
+        y = project(y.reshape(B, S, -1), layer.attn.wo)
     x = x + y
     x = shard(x, "act_btd")
     x = x + _apply_ffn(cfg, layer, layer.ln2(x))
@@ -238,21 +240,68 @@ def lm_loss(cfg: ModelConfig, model, hidden, labels):
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, h.shape[1], chunk):
         yc = y[:, c0:c0 + chunk].reshape(-1)
-        logits = (h[:, c0:c0 + chunk] @ head).float()  # [n, chunk, V]
+        logits = project(h[:, c0:c0 + chunk], head).float()  # [n, chunk, V]
         logits = shard(logits.reshape(yc.shape[0], -1), "logits")
-        lse = torch.logsumexp(logits, dim=-1)
-        # the label's logit kept 2-D until the subtraction: DTensor's
-        # masked gather over a vocab-sharded row reduces only 2-D results
-        correct = logits.gather(
-            -1, yc.clamp(0, cfg.vocab - 1).long()[:, None])
+        lse = logsumexp_on_shards(logits)
+        # the label's logit kept 2-D until the subtraction
+        correct = label_logits(logits, yc.clamp(0, cfg.vocab - 1).long())
         w = (yc >= 0).float()
         tot = tot + ((lse[:, None] - correct)[:, 0] * w).sum()
         cnt = cnt + w.sum()
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def logsumexp_on_shards(logits):
+    """``torch.logsumexp(logits, -1)`` of [T, V] logits.  On a DTensor
+    whose vocab is split, the explicit choice: the rows' max and their sums
+    of exponentials are reduced over the vocab shards (two all-reduces of
+    [T]), where DTensor's own logsumexp makes the vocab whole on every rank
+    (gemma3-4b's loss chunk: [8192, 262144] float32, 8.6 GB a device)."""
+    if shards(logits, 1) == 1:
+        return torch.logsumexp(logits, dim=-1)
+    m = sum_partials(logits.amax(-1)).detach()
+    return m + torch.log(sum_partials(torch.exp(logits - m[:, None])
+                                      .sum(-1)))
+
+
+def label_logits(logits, labels):
+    """``logits.gather(-1, labels[:, None])``: logits [T, V], labels [T]
+    in range -> [T, 1].  On a DTensor whose vocab the model axis splits,
+    the explicit choice (as :func:`repro_torch.models.layers.
+    lookup_on_shards` for the embedding): each rank takes, under
+    ``local_map``, the labels that fall in its own vocab shard (0 for the
+    others) and the model axis sums them (a ``Partial`` result), so the
+    backward scatters into local zeros.  DTensor's own gather on a
+    vocab-split row makes zeros of the global [T, V] shape on every rank
+    in the backward."""
+    if not is_dtensor(logits):
+        return logits.gather(-1, labels[:, None])
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    pl = tuple(logits.placements)
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+    out = tuple(Partial() if p.is_shard(1) else r for p, r in zip(pl, rows))
+    split = [d for d, p in enumerate(pl) if p.is_shard(1)]
+    lg_pl = tuple(p if p.is_shard(1) else r for p, r in zip(pl, rows))
+
+    def local(lg, y):
+        rank = 0  # this rank's vocab shard, the split mesh dims major first
+        for d in split:
+            rank = rank * mesh.size(d) + mesh.get_local_rank(d)
+        i = y - rank * lg.shape[1]
+        ok = (i >= 0) & (i < lg.shape[1])
+        g = lg.gather(-1, i.clamp(0, lg.shape[1] - 1)[:, None])
+        return torch.where(ok[:, None], g, torch.zeros_like(g))
+
+    return local_map(local, out_placements=list(out),
+                     in_placements=(lg_pl, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
+
+
 def lm_logits(cfg: ModelConfig, model: LM, hidden):
-    return (hidden @ head_weights(cfg, model)).float()
+    return project(hidden, head_weights(cfg, model)).float()
 
 
 # --------------------------------------------------------------------------- #
@@ -327,7 +376,7 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, lc, x, pos: int,
     else:
         kc, vc = cache_insert(lc["k"], lc["v"], k, v, pos)
         y = decode_attention(q, kc, vc, pos, slot_pos=None)
-    x = x + y.reshape(B, 1, -1) @ layer.attn.wo
+    x = x + project(y.reshape(B, 1, -1), layer.attn.wo)
     return x + _apply_ffn(cfg, layer, layer.ln2(x))
 
 

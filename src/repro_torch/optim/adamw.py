@@ -52,6 +52,22 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def _placed_as(g, ref):
+    """``g`` in ``ref``'s placements.  A DTensor gradient comes out of
+    autograd in DTensor's own layout (partial sums over the axes that split
+    the activations, its dims split as the product's strategy chose),
+    which the in-place writes of the moments cannot take, a zero-width leaf
+    included.  The explicit choice: each gradient is reduced once onto its
+    moment's layout (a reduce-scatter where the moment is split, moving
+    the gradient's bytes and nothing of a zero-width leaf) before the norm
+    and the step.  A plain tensor passes through."""
+    from repro_torch.sharding.ctx import is_dtensor
+
+    if is_dtensor(g) and tuple(g.placements) != tuple(ref.placements):
+        return g.redistribute(ref.device_mesh, ref.placements)
+    return g
+
+
 def init(cfg: AdamWConfig,
          params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """Zero moments in the moment dtype, step 0 (on the parameters'
@@ -59,11 +75,14 @@ def init(cfg: AdamWConfig,
     parameters."""
     dt = _mdt(cfg)
     dev = next(iter(params.values())).device
+
+    def zeros(p):  # on a DTensor its local shard's, not the global shape
+        return torch.zeros_like(p, dtype=dt,
+                                memory_format=torch.contiguous_format)
+
     state: Dict[str, Any] = {
-        "m": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-              for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-              for k, p in params.items()},
+        "m": {k: zeros(p) for k, p in params.items()},
+        "v": {k: zeros(p) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.master_weights:
         state["master"] = {k: p.detach().float().clone()
@@ -88,6 +107,7 @@ def update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     returns them, the state with ``step`` one further, and ``grad_norm``
     and ``lr``."""
     step = state["step"]
+    grads = {k: _placed_as(g, state["m"][k]) for k, g in grads.items()}
     gnorm = global_norm(grads)
     scale = None
     if cfg.clip_norm is not None:

@@ -22,9 +22,11 @@ class GradCompressor:
     bits: int = 8
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-        return {"ef": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
-                       for k, p in params.items()}}
+        # zeros_like: a DTensor parameter's local shard, not its global
+        # shape on every rank
+        return {"ef": {k: torch.zeros_like(
+            p, dtype=torch.float32, memory_format=torch.contiguous_format)
+            for k, p in params.items()}}
 
     @torch.no_grad()
     def apply(self, grads: Mapping[str, torch.Tensor], opt_state

@@ -7,9 +7,10 @@ DTensor the call redistributes it to the rule's placements on its own
 mesh.  Outside any rule context, on a plain tensor, or on a rank mismatch,
 the calls are no-ops, so single-device runs take the same code path.
 
-:func:`unflatten` and :func:`sum_partials` are the explicit choices at
-the call sites where DTensor has no sharding rule for the op that follows
-(``PERF.md`` lists them); they too leave a plain tensor as it is.
+:func:`unflatten`, :func:`sum_partials` and :func:`project` are the
+explicit choices at the call sites where DTensor has no sharding rule for
+the op that follows, or picks a costly one (``PERF.md`` lists them); they
+too leave a plain tensor as it is.
 """
 from __future__ import annotations
 
@@ -117,3 +118,34 @@ def sum_partials(x):
 
     return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
                                           else p for p in x.placements])
+
+
+def gathered(w):
+    """The weight ``w`` whole over the data axes (the FSDP all-gather),
+    its model-axis split kept; a plain tensor, or one the data axes do not
+    split, passes through."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = w.device_mesh.mesh_dim_names
+    pl = [Replicate() if names[d] != "model" and p.is_shard() else p
+          for d, p in enumerate(w.placements)]
+    if pl == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, pl)
+
+
+def project(x, w):
+    """``x @ w``.  On DTensors the weight is first made whole over the
+    data axes (:func:`gathered`) where the rows of ``x`` outnumber ``w``'s
+    input dim, i.e. where moving the weight costs less than moving the
+    rows.  The explicit choice: a product of rows split over the data
+    axes with a weight split over them too must gather one of the two,
+    and DTensor's cost model has picked the rows in the backward, making
+    activations of the global token count on every rank (qwen1.5-110b's
+    [tokens, d_ff], the LM head's [tokens, d_model] gradient).  A decode
+    step's few rows are left to DTensor."""
+    if is_dtensor(w) and math.prod(x.shape[:-1]) > w.shape[0]:
+        w = gathered(w)
+    return x @ w
