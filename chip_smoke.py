@@ -2,12 +2,15 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--baseline-scan PATH] [--baseline-affinity DIR]
+                          [--baseline-flash PATH]
 
 Phases, one line each (every time beside the card's name and power limit):
 
 1. card   — ``nvidia-smi`` name and power limit; fails without CUDA;
 2. build  — the five kernels from ``src/repro_torch/kernels/*/csrc/*.cu``
-   with ``nvcc``, one process per source, in parallel;
+   with ``nvcc``, one process per source, in parallel; the bf16 flash
+   kernel's compiled tiles (``flash_attention_bf16_tiles``) must be
+   ``kernel.TILES`` for every head dim;
 3. kernels vs plain — each affinity kernel against its plain PyTorch version
    on the card, bit for bit, at the edges of its geometry
    (``AFFINITY_CASES``) and at the main path's shapes, with rows that are
@@ -65,7 +68,11 @@ Phases, one line each (every time beside the card's name and power limit):
    kernel (6 launches, none of the bf16 one) against the direct path;
 8. serving times — both flash kernels at (1, 4096, 8, 4, 256) in their
    types, causal and window 1024 (CUDA-event and profiler ms, plain ms,
-   ``scaled_dot_product_attention`` ms, bound); prefill ms and tokens/s,
+   ``scaled_dot_product_attention`` ms, bound, and for bf16 the MUFU floor
+   of its exp2s); with ``--baseline-flash PATH`` an earlier
+   ``flash_attention_sm90.cu`` built and timed beside the bf16 kernel, in
+   turns, on the same inputs, here and at phases 15's and 16's bf16
+   shapes; prefill ms and tokens/s,
    decode ms per token and the engine's scheduling us per request; where
    one prefill's and one decode step's time goes on the card (profiler:
    flash, matrix products, the rest, and the device's idle share);
@@ -292,6 +299,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 67e12  # the CUDA cores, outside the tensor cores
+# the SFU's exp2: 16 a clock on each of the 132 SMs, at the 1.98 GHz boost
+MUFU_EXP2_PER_S = 16 * 132 * 1.98e9
 
 # the reference rig (benchmarks/scheduler_scale.py): cluster, occupancy,
 # residency, wave size and seeds
@@ -656,7 +665,7 @@ def main_path_inputs(plat: Platform):
     return arrivals, wave
 
 
-def device_split(fn, iters: int = 50, attempts: int = 3):
+def device_split(fn, iters: int = 50, attempts: int = 6):
     """Device time per call by kernel (and copy) name, from
     ``torch.profiler``: ``{name: {"ms": ms per call, "per_call": events per
     call}}``; empty when the profiler sees no device activity.  A trace
@@ -876,7 +885,11 @@ def time_affinity_baseline(base_dir: Path, cases):
 #: with a window at Sq > Skv and Sq < Skv (the kernel's key-tile bounds),
 #: and the enc-dec family's ratio 1 at hd 64: non-causal with a ragged last
 #: key tile (the encoder, and cross-attention at Sq < Skv and Sq > Skv) and
-#: causal (the decoder's self-attention)
+#: causal (the decoder's self-attention).  For each head dim's tiles
+#: (``kernel.TILES``) they hold an Sq off its query rows, an Skv off its
+#: key tile, a window under its key tile and a causal diagonal across a
+#: consumer's rows (tests/test_torch_flash_attention.py checks it): at
+#: hd 64, Sq = 129 leaves the last CTA one row (its second consumer none)
 FLASH_CASES = [
     (1, 1, 1, 2, 1, 64, True, None),
     (2, 200, 200, 4, 2, 64, True, None),
@@ -898,6 +911,11 @@ FLASH_CASES = [
     (1, 257, 300, 16, 16, 64, False, None),
     (1, 257, 257, 16, 16, 64, True, None),
     (1, 385, 200, 16, 16, 64, False, None),
+    # the tiles of hd 64 and 128 (128 rows, 128 keys): a ragged last CTA
+    # and key tile, a window under the key tile
+    (1, 193, 193, 32, 4, 64, True, None),
+    (1, 129, 385, 16, 16, 64, False, None),
+    (1, 450, 450, 8, 8, 128, True, 100),
 ]
 
 
@@ -1304,8 +1322,61 @@ def masked_pairs(S: int, window) -> int:
     return sum(min(i + 1, window) for i in range(S))
 
 
+def flash_entry(kernel, q, k, v, causal: bool, window):
+    """The bare ctypes entry point of ``kernel`` (a CudaKernel with
+    ``flash_attention_bf16_launch``'s signature) on these card inputs, with
+    o allocated and every argument converted to its ctypes type once: a
+    call with none of the wrapper's Python.  Returns the call, which holds
+    the tensors it reads and writes, and o."""
+    o = torch.empty_like(q)
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    fn = kernel.fn()
+    args = (*(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o)),
+            *(ctypes.c_int64(x) for x in (
+                B, Sq, Skv, H, K, hd, int(bool(causal)),
+                0 if window is None else int(window))),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    def call(buffers=(q, k, v, o)):  # alive as long as the call
+        return fn(*args)
+
+    rc = call()
+    if rc != 0:
+        raise AssertionError(f"{kernel.name}: the bare launch failed: CUDA "
+                             f"error {rc}")
+    return call, o
+
+
+def flash_baseline(baseline, q, k, v, causal: bool, window) -> dict:
+    """An earlier ``flash_attention_sm90.cu`` (``baseline``, a CudaKernel)
+    against the current bf16 kernel on the same card inputs, both through
+    their bare entries (:func:`flash_entry`): CUDA-event and profiler
+    device ms in turns (baseline, new, new, baseline), and each one's
+    output held to the plain version as :func:`flash_bf16_check` holds the
+    kernel's (raises past the tolerance)."""
+    old, o_old = flash_entry(baseline, q, k, v, causal, window)
+    new, o_new = flash_entry(fa.FLASH_ATTENTION_BF16_KERNEL, q, k, v, causal,
+                             window)
+    torch.cuda.synchronize()
+    Sq, Skv = q.shape[1], k.shape[1]
+    tile = dropped_tile(Sq, Skv, causal, window)
+    span = dropped_span(Skv, causal, window)
+    err = {name: flash_bf16_check(o, q, k, v, causal, window, tile,
+                                  span)["err_over_tol"]
+           for name, o in (("baseline", o_old), ("new", o_new))}
+    timed = collections.defaultdict(list)
+    for name, fn in (("baseline", old), ("new", new), ("new", new),
+                     ("baseline", old)):
+        timed[f"{name}_ms"].append(cuda_ms(fn, iters=50, warmup=5))
+        timed[f"{name}_device_ms"].append(device_ms(fn, iters=20))
+    return {"source": str(baseline.source), "err_over_tol": err,
+            "max_abs_diff": max_abs_err(o_old.float(), o_new.float()),
+            **timed}
+
+
 def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256),
-               causal: bool = True):
+               causal: bool = True, baseline=None):
     """The flash kernel for ``dtype`` at ``shape`` (B, S, H, K, hd;
     gemma3-4b's serving shape unless given), causal with ``window`` (or
     not causal, with no window): CUDA-event ms per call, profiler device
@@ -1316,7 +1387,11 @@ def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256),
     and the mask's useful multiply-adds (q k^T and p v, 4 hd flops per
     admitted pair and head) at the peak rate for the type (dense bf16 on the
     tensor cores; float32 on the CUDA cores, since a TF32 product would not
-    hold the float32 tolerance)."""
+    hold the float32 tolerance).  Beside the bound, the MUFU floor of the
+    bf16 kernel's exp2s: one per admitted pair and head, 16 a clock on each
+    of the 132 SMs at 1.98 GHz (None for float32).  With ``baseline`` (a
+    CudaKernel of an earlier ``flash_attention_sm90.cu``; bf16 only),
+    :func:`flash_baseline` on the same inputs."""
     import torch.nn.functional as F
 
     B, S, H, K, hd = shape
@@ -1336,19 +1411,25 @@ def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256),
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
     nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() +
                                  q.numel())
-    flops = 4 * hd * H * (masked_pairs(S, window) if causal else S * S)
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    pairs = B * H * (masked_pairs(S, window) if causal else S * S)
+    flops = 4 * hd * pairs
+    bf16 = dtype == torch.bfloat16
+    peak = BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return {"shape": [B, S, H, K, hd], "dtype": str(dtype)[6:],
-            "causal": causal, "window": window,
-            "ms": cuda_ms(kern, iters=50, warmup=5),
-            "device_ms": device_ms(kern, iters=20),
-            "plain_ms": cuda_ms(plain, iters=10, warmup=2),
-            "library_ms": cuda_ms(lib, iters=50, warmup=5),
-            "library_device_ms": device_ms(lib, iters=20),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "useful_gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    out = {"shape": [B, S, H, K, hd], "dtype": str(dtype)[6:],
+           "causal": causal, "window": window,
+           "ms": cuda_ms(kern, iters=50, warmup=5),
+           "device_ms": device_ms(kern, iters=20),
+           "plain_ms": cuda_ms(plain, iters=10, warmup=2),
+           "library_ms": cuda_ms(lib, iters=50, warmup=5),
+           "library_device_ms": device_ms(lib, iters=20),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "mufu_floor_ms": pairs / MUFU_EXP2_PER_S * 1e3 if bf16 else None,
+           "useful_gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    if baseline is not None:
+        out["baseline"] = flash_baseline(baseline, q, k, v, causal, window)
+    return out
 
 
 def full_width(base, n_layers: int, dtype: str = "bfloat16", seed: int = 0):
@@ -1792,7 +1873,7 @@ def time_scan(seed: int, baseline=None, D: int = 2 * FALCON_MAMBA_7B.d_model):
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-           "mufu_floor_ms_at_1.98GHz": B * S * D * N / (16 * 132 * 1.98e9)
+           "mufu_floor_ms_at_1.98GHz": B * S * D * N / MUFU_EXP2_PER_S
            * 1e3}
     out["bound_share_of_device"] = out["bound_ms"] / out["device_ms"] \
         if out["device_ms"] else None
@@ -1969,12 +2050,13 @@ ENCDEC_F32_LAYERS = 2  # a side
 VLM_LAYERS = 4  # of internvl2-76b's 80: 11.2 GB at full width
 
 
-def encdec_vlm_path() -> dict:
+def encdec_vlm_path(flash_base=None) -> dict:
     """Phase 16: seamless-m4t-large-v2 whole behind ``serve.Engine``
     (:func:`serving_path`: 72 bf16 flash launches a prefill, 24 encoder,
     24 decoder self and 24 cross, flash held to its plain version on the
     first call of each), bf16 flash timed at its shape (1, PROMPT / 2, 16,
-    16, 64) non-causal and causal, its float32 check at two layers a side
+    16, 64) non-causal and causal (beside ``flash_base``, an earlier
+    kernel, in turns, when given), its float32 check at two layers a side
     (:func:`model_f32`); then internvl2-76b at full width with VLM_LAYERS
     layers behind the same engine (patches and text, one flash launch a
     layer and prefill).  Returns the numbers printed."""
@@ -1989,7 +2071,7 @@ def encdec_vlm_path() -> dict:
              cfg.resolved_head_dim)
     out["flash_times"] = {
         name: time_flash(torch.bfloat16, None, seed=seed, shape=shape,
-                         causal=causal)
+                         causal=causal, baseline=flash_base)
         for name, causal, seed in (("noncausal", False, 21),
                                    ("causal", True, 22))}
     out["seamless_f32"] = model_f32(cfg, ENCDEC_F32_LAYERS, seed=3)
@@ -3189,6 +3271,10 @@ def main(argv=None) -> int:
                     "affinity_valid.cu, bulk_decide.cu and "
                     "affinity_common.cuh, to build and time beside these "
                     "in phase 5")
+    ap.add_argument("--baseline-flash", type=Path, default=None,
+                    help="an earlier flash_attention_sm90.cu (same C entry "
+                    "point) to build and time beside this one at the bf16 "
+                    "shapes of phases 8, 15 and 16")
     args = ap.parse_args(argv)
     wall = {"start": time.perf_counter()}
 
@@ -3218,17 +3304,36 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     lap("1")
-    # 2. build, from the sources in this checkout
-    for k in ALL_KERNELS:
+    # 2. build, from the sources in this checkout (and the earlier flash
+    # kernel, when asked, beside them)
+    flash_base = None
+    if args.baseline_flash is not None:
+        k = fa.FLASH_ATTENTION_BF16_KERNEL
+        flash_base = type(k)("flash_attention_bf16_baseline",
+                             str(args.baseline_flash.resolve()),
+                             entry=k.entry, argtypes=k.argtypes,
+                             flags=k.flags)
+    builds = (*ALL_KERNELS, *([flash_base] if flash_base else []))
+    for k in builds:
         k.library_path().unlink(missing_ok=True)
-    build_s = build_all(ALL_KERNELS)
+    build_s = build_all(builds)
     ptxas = {k.name: ptxas_summary(k.build_log) for k in ALL_KERNELS}
     spilled = [name for name, p in ptxas.items() if p["spill_bytes"]]
     if spilled:
         raise AssertionError(f"kernels spill registers: {ptxas}")
-    print(f"build: {', '.join(k.name for k in ALL_KERNELS)} built in "
+    print(f"build: {', '.join(k.name for k in builds)} built in "
           f"{build_s:.2f} s (nvcc, sm_90a, in parallel); -Xptxas -v "
           f"registers per instance and spilled bytes: {ptxas}", flush=True)
+    if flash_base is not None:
+        print(f"baseline: {flash_base.source}: "
+              f"{ptxas_summary(flash_base.build_log)}", flush=True)
+    tiles = {hd: fa.kernel.compiled_tiles(hd) for hd in fa.kernel.HEAD_DIMS}
+    print(f"flash_attention_bf16 tiles (rows, keys, stages, consumers) by "
+          f"head dim: compiled {tiles}, kernel.TILES {fa.kernel.TILES}",
+          flush=True)
+    if tiles != fa.kernel.TILES:
+        raise AssertionError("the bf16 flash kernel compiled other tiles "
+                             "than kernel.TILES")
 
     lap("2")
     # 3. kernels vs plain, bit for bit
@@ -3381,7 +3486,9 @@ def main(argv=None) -> int:
 
     lap("7")
     # 8. serving times
-    flash_t = {(dtype, name): time_flash(dtype, window, seed=seed)
+    flash_t = {(dtype, name): time_flash(
+        dtype, window, seed=seed,
+        baseline=flash_base if dtype == torch.bfloat16 else None)
                for dtype in (torch.bfloat16, torch.float32)
                for name, window, seed in (("causal", None, 11),
                                           ("window1024", cfg.sliding_window,
@@ -3481,7 +3588,7 @@ def main(argv=None) -> int:
         shape = (1, PROMPT, cfg_.n_heads, cfg_.n_kv_heads,
                  cfg_.resolved_head_dim)
         shape_t[cfg_.name] = time_flash(torch.bfloat16, None, seed=seed,
-                                        shape=shape)
+                                        shape=shape, baseline=flash_base)
         print(f"time {tag}: flash_attention_bf16 causal at {shape} "
               f"({cfg_.name}): {json.dumps(shape_t[cfg_.name])}", flush=True)
     scan_wide = time_scan(seed=19, D=2 * JAMBA_15_LARGE.d_model)
@@ -3493,7 +3600,7 @@ def main(argv=None) -> int:
     # internvl2-76b at full width with 4 layers
     gc.collect()
     torch.cuda.empty_cache()
-    ev = encdec_vlm_path()
+    ev = encdec_vlm_path(flash_base)
     for name in ("seamless", "internvl2"):
         print(f"{name} serving end to end {tag}: "
               f"{json.dumps(ev[name]['serving'])}", flush=True)
@@ -3642,7 +3749,7 @@ def main(argv=None) -> int:
                          key: t_[key] for key in (
                              "shape", "ms", "device_ms", "plain_ms",
                              "library_ms", "library_device_ms", "bound_ms",
-                             "bound_by")}
+                             "bound_by", "mufu_floor_ms")}
                          for name, t_ in (*shape_t.items(), *(
                              (f"seamless-m4t-large-v2 {n}", t_)
                              for n, t_ in ev["flash_times"].items()))}

@@ -60,6 +60,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self.build_log = ""
+        self._lib = None
         self._fn = None
 
     def library_path(self) -> Path:
@@ -87,13 +88,19 @@ class CudaKernel:
     def fn(self):
         """The bound entry point, building the library first if needed."""
         if self._fn is None:
-            build_all([self])
-            lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.entry)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = self.symbol(self.entry, self.argtypes)
         return self._fn
+
+    def symbol(self, name: str, argtypes: Sequence):
+        """The library's C function ``name`` with ``argtypes`` and an int
+        result, building and loading the library first if needed."""
+        if self._lib is None:
+            build_all([self])
+            self._lib = ctypes.CDLL(str(self.library_path()))
+        fn = getattr(self._lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> float:

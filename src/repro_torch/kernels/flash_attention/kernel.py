@@ -16,7 +16,7 @@ CPU tensors to the plain version in :mod:`.ref`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,6 +41,35 @@ KERNEL_BF16 = CudaKernel(
     # q k v o, B Sq Skv H K hd causal window, stream
     argtypes=[_P] * 4 + [_N] * 8 + [_P],
     flags=NVCC_FLAGS)
+
+
+class Tiles(NamedTuple):
+    """One bf16 instance's tiling: query rows a CTA (64 a consumer
+    warpgroup), keys a tile, stages of the k / v ring, consumer
+    warpgroups."""
+    rows: int
+    keys: int
+    stages: int
+    consumers: int
+
+
+#: the bf16 kernel's tiles by head dim, as ``flash_attention_sm90.cu``'s
+#: ``Tiles<HD>`` compiles them (:func:`compiled_tiles` reads them back)
+TILES = {64: Tiles(128, 128, 3, 2), 128: Tiles(128, 128, 2, 2),
+         256: Tiles(128, 64, 2, 2)}
+
+
+def compiled_tiles(hd: int) -> Tiles:
+    """The tiles that ``flash_attention_sm90.cu`` compiled for head dim
+    ``hd``, from its ``flash_attention_bf16_tiles`` entry; builds the
+    library on first use (on the machine with the card)."""
+    out = (ctypes.c_int * 4)()
+    fn = KERNEL_BF16.symbol("flash_attention_bf16_tiles", [_N, _P])
+    rc = fn(hd, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise ValueError(f"{KERNEL_BF16.name} has no instance for "
+                         f"head_dim {hd}")
+    return Tiles(*out)
 
 
 def choose_kernel(dtype: torch.dtype, hd: int) -> CudaKernel:

@@ -198,6 +198,16 @@ def test_flash_attention_equals_its_plain_version_on_the_card(card, case,
         **before, moved.name: before[moved.name] + n}
 
 
+@pytest.mark.parametrize("hd", fa.kernel.HEAD_DIMS)
+def test_bf16_flash_compiles_the_wrappers_tiles_on_the_card(card, hd):
+    """``flash_attention_bf16_tiles`` of the built library (query rows,
+    keys a tile, stages, consumers) is ``kernel.TILES``; a head dim with
+    no instance is refused."""
+    assert fa.kernel.compiled_tiles(hd) == fa.kernel.TILES[hd]
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fa.kernel.compiled_tiles(96)
+
+
 def test_flash_attention_refuses_an_unsupported_head_dim_on_the_card(card):
     q = torch.zeros((1, 8, 2, 96), device="cuda")
     with pytest.raises(ValueError, match="head_dim 96"):

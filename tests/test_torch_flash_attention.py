@@ -8,6 +8,8 @@ Tolerances are those of ``tests/test_kernels.py`` for the flash kernel:
 once; the two can differ by one bf16 step).  The attention switch is held
 to 1e-5 in float32: the same maths, summed in another order."""
 import os
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -172,6 +174,57 @@ def test_kernel_wrapper_refuses_what_the_kernel_cannot_take(
     with pytest.raises((ValueError, TypeError), match=match):
         fa_kernel.check_shapes(q, kv, kv, window)
 
+
+
+def test_bf16_tiles_are_the_sources():
+    """``kernel.TILES`` is what ``flash_attention_sm90.cu``'s ``Tiles<HD>``
+    compiles (the card's tests read it back from the library too): 64 query
+    rows a consumer warpgroup, 64 or 128 keys a tile."""
+    src = (Path(fa_kernel.__file__).parent / "csrc" /
+           "flash_attention_sm90.cu").read_text()
+    found = {int(hd): fa_kernel.Tiles(*map(int, args))
+             for hd, *args in re.findall(
+                 r"struct Tiles<(\d+)> : TilesOf<(\d+), (\d+), (\d+), "
+                 r"(\d+),", src)}
+    assert found == fa_kernel.TILES
+    assert set(found) == set(fa_kernel.HEAD_DIMS)
+    for t in found.values():
+        assert t.rows == 64 * t.consumers and t.keys in (64, 128)
+
+
+def _consumer_boundary_on_diagonal(rows, Sq, Skv, causal) -> bool:
+    """A causal case whose diagonal runs from one consumer's 64 rows into
+    the next one's inside a CTA of ``rows`` rows."""
+    return causal and any(b % rows for b in range(64, min(Sq, Skv), 64))
+
+
+@pytest.mark.parametrize("hd", fa_kernel.HEAD_DIMS)
+def test_flash_cases_cover_each_head_dims_tiles(hd):
+    """``chip_smoke.FLASH_CASES``, which the card's runs hold the bf16
+    kernel to, reach every edge of head dim ``hd``'s tiles: an Sq off its
+    query rows, an Skv off its key tile, a window under its key tile and a
+    causal diagonal across a consumer boundary."""
+    import chip_smoke
+
+    t = fa_kernel.TILES[hd]
+    cases = [c for c in chip_smoke.FLASH_CASES if c[5] == hd]
+    assert any(Sq % t.rows for _, Sq, *_ in cases)
+    assert any(Skv % t.keys for _, _, Skv, *_ in cases)
+    assert any(w is not None and w < t.keys for *_, w in cases)
+    assert any(_consumer_boundary_on_diagonal(t.rows, Sq, Skv, causal)
+               for _, Sq, Skv, _, _, _, causal, _ in cases)
+
+
+@pytest.mark.parametrize("rows,Sq,Skv,causal,crosses", [
+    (128, 64, 64, True, False),    # one consumer's rows only
+    (128, 65, 65, True, True),     # row 64 starts the second consumer
+    (128, 65, 64, True, False),    # no key past 63: the diagonal ends
+    (128, 200, 200, False, False),  # no diagonal
+    (192, 193, 193, True, True),
+    (64, 300, 300, True, False),   # every boundary is a CTA's
+])
+def test_consumer_boundary_on_diagonal(rows, Sq, Skv, causal, crosses):
+    assert _consumer_boundary_on_diagonal(rows, Sq, Skv, causal) == crosses
 
 
 @pytest.mark.parametrize("dtype,hd,kernel", [
