@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--baseline-scan PATH] [--baseline-affinity DIR]
-                          [--baseline-flash PATH]
+                          [--baseline-flash PATH] [--baseline-flash-f32 PATH]
 
 Phases, one line each (every time beside the card's name and power limit):
 
@@ -10,7 +10,8 @@ Phases, one line each (every time beside the card's name and power limit):
 2. build  — the five kernels from ``src/repro_torch/kernels/*/csrc/*.cu``
    with ``nvcc``, one process per source, in parallel; the bf16 flash
    kernel's compiled tiles (``flash_attention_bf16_tiles``) must be
-   ``kernel.TILES`` for every head dim;
+   ``kernel.TILES`` for every head dim, and the float32 one's
+   (``flash_attention_f32_tiles``) ``kernel.F32_TILES``;
 3. kernels vs plain — each affinity kernel against its plain PyTorch version
    on the card, bit for bit, at the edges of its geometry
    (``AFFINITY_CASES``) and at the main path's shapes, with rows that are
@@ -67,12 +68,16 @@ Phases, one line each (every time beside the card's name and power limit):
    width (6 layers), S = 2048: prefill logits through the float32 flash
    kernel (6 launches, none of the bf16 one) against the direct path;
 8. serving times — both flash kernels at (1, 4096, 8, 4, 256) in their
-   types, causal and window 1024 (CUDA-event and profiler ms, plain ms,
-   ``scaled_dot_product_attention`` ms, bound, and for bf16 the MUFU floor
-   of its exp2s); with ``--baseline-flash PATH`` an earlier
+   types, causal and window 1024, and the float32 one at seamless's
+   (1, 2048, 16, 16, 64) non-causal and causal (CUDA-event and profiler
+   ms, plain ms, ``scaled_dot_product_attention`` ms, bound, and for bf16
+   the MUFU floor of its exp2s); with ``--baseline-flash PATH`` an earlier
    ``flash_attention_sm90.cu`` built and timed beside the bf16 kernel, in
    turns, on the same inputs, here and at phases 15's and 16's bf16
-   shapes; prefill ms and tokens/s,
+   shapes; with ``--baseline-flash-f32 PATH`` an earlier
+   ``flash_attention.cu`` beside the float32 kernel at its four shapes
+   here, in turns, each output held to the plain version within 2e-5;
+   prefill ms and tokens/s,
    decode ms per token and the engine's scheduling us per request; where
    one prefill's and one decode step's time goes on the card (profiler:
    flash, matrix products, the rest, and the device's idle share);
@@ -889,7 +894,10 @@ def time_affinity_baseline(base_dir: Path, cases):
 #: (``kernel.TILES``) they hold an Sq off its query rows, an Skv off its
 #: key tile, a window under its key tile and a causal diagonal across a
 #: consumer's rows (tests/test_torch_flash_attention.py checks it): at
-#: hd 64, Sq = 129 leaves the last CTA one row (its second consumer none)
+#: hd 64, Sq = 129 leaves the last CTA one row (its second consumer none).
+#: For the float32 tiles (``kernel.F32_TILES``) they hold an Sq off its
+#: query rows that leaves a warp part full, an Skv off its key tile and a
+#: window under its key tile (checked there too)
 FLASH_CASES = [
     (1, 1, 1, 2, 1, 64, True, None),
     (2, 200, 200, 4, 2, 64, True, None),
@@ -916,6 +924,10 @@ FLASH_CASES = [
     (1, 193, 193, 32, 4, 64, True, None),
     (1, 129, 385, 16, 16, 64, False, None),
     (1, 450, 450, 8, 8, 128, True, 100),
+    # the float32 tiles of hd 128 (128 rows, 16 a warp, 64 keys): a last
+    # CTA of 72 rows (its fifth warp half full), a ragged last key tile and
+    # a window under the key tile
+    (1, 200, 330, 16, 8, 128, True, 40),
 ]
 
 
@@ -1324,7 +1336,7 @@ def masked_pairs(S: int, window) -> int:
 
 def flash_entry(kernel, q, k, v, causal: bool, window):
     """The bare ctypes entry point of ``kernel`` (a CudaKernel with
-    ``flash_attention_bf16_launch``'s signature) on these card inputs, with
+    ``flash_attention_launch``'s signature) on these card inputs, with
     o allocated and every argument converted to its ctypes type once: a
     call with none of the wrapper's Python.  Returns the call, which holds
     the tensors it reads and writes, and o."""
@@ -1349,22 +1361,34 @@ def flash_entry(kernel, q, k, v, causal: bool, window):
 
 
 def flash_baseline(baseline, q, k, v, causal: bool, window) -> dict:
-    """An earlier ``flash_attention_sm90.cu`` (``baseline``, a CudaKernel)
-    against the current bf16 kernel on the same card inputs, both through
-    their bare entries (:func:`flash_entry`): CUDA-event and profiler
-    device ms in turns (baseline, new, new, baseline), and each one's
-    output held to the plain version as :func:`flash_bf16_check` holds the
-    kernel's (raises past the tolerance)."""
+    """An earlier flash kernel (``baseline``, a CudaKernel of an earlier
+    ``flash_attention_sm90.cu`` for bf16 inputs, ``flash_attention.cu`` for
+    float32 ones) against the current kernel for q's dtype on the same card
+    inputs, both through their bare entries (:func:`flash_entry`):
+    CUDA-event and profiler device ms in turns (baseline, new, new,
+    baseline), and each one's output held to the plain version as
+    :func:`compare_flash` holds the kernel's (raises past the tolerance;
+    ``err_over_tol`` is the largest error over it)."""
     old, o_old = flash_entry(baseline, q, k, v, causal, window)
-    new, o_new = flash_entry(fa.FLASH_ATTENTION_BF16_KERNEL, q, k, v, causal,
-                             window)
+    new, o_new = flash_entry(fa.choose_kernel(q.dtype, q.shape[-1]), q, k, v,
+                             causal, window)
     torch.cuda.synchronize()
-    Sq, Skv = q.shape[1], k.shape[1]
-    tile = dropped_tile(Sq, Skv, causal, window)
-    span = dropped_span(Skv, causal, window)
-    err = {name: flash_bf16_check(o, q, k, v, causal, window, tile,
-                                  span)["err_over_tol"]
-           for name, o in (("baseline", o_old), ("new", o_new))}
+    if q.dtype == torch.bfloat16:
+        Sq, Skv = q.shape[1], k.shape[1]
+        tile = dropped_tile(Sq, Skv, causal, window)
+        span = dropped_span(Skv, causal, window)
+        err = {name: flash_bf16_check(o, q, k, v, causal, window, tile,
+                                      span)["err_over_tol"]
+               for name, o in (("baseline", o_old), ("new", o_new))}
+    else:
+        want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+        err = {name: max_abs_err(o, want) / FLASH_TOL[q.dtype]
+               for name, o in (("baseline", o_old), ("new", o_new))}
+        if not max(err.values()) <= 1.0:
+            raise AssertionError(
+                f"float32 flash kernels differ from the plain version by "
+                f"{err} x {FLASH_TOL[q.dtype]} at q {tuple(q.shape)}, "
+                f"causal={causal}, window={window}")
     timed = collections.defaultdict(list)
     for name, fn in (("baseline", old), ("new", new), ("new", new),
                      ("baseline", old)):
@@ -1390,8 +1414,8 @@ def time_flash(dtype, window, seed: int, shape=(1, PROMPT, 8, 4, 256),
     hold the float32 tolerance).  Beside the bound, the MUFU floor of the
     bf16 kernel's exp2s: one per admitted pair and head, 16 a clock on each
     of the 132 SMs at 1.98 GHz (None for float32).  With ``baseline`` (a
-    CudaKernel of an earlier ``flash_attention_sm90.cu``; bf16 only),
-    :func:`flash_baseline` on the same inputs."""
+    CudaKernel of an earlier kernel for ``dtype``), :func:`flash_baseline`
+    on the same inputs."""
     import torch.nn.functional as F
 
     B, S, H, K, hd = shape
@@ -3275,6 +3299,10 @@ def main(argv=None) -> int:
                     help="an earlier flash_attention_sm90.cu (same C entry "
                     "point) to build and time beside this one at the bf16 "
                     "shapes of phases 8, 15 and 16")
+    ap.add_argument("--baseline-flash-f32", type=Path, default=None,
+                    help="an earlier flash_attention.cu (same C entry "
+                    "point) to build and time beside this one at the "
+                    "float32 shapes of phase 8")
     args = ap.parse_args(argv)
     wall = {"start": time.perf_counter()}
 
@@ -3306,14 +3334,17 @@ def main(argv=None) -> int:
     lap("1")
     # 2. build, from the sources in this checkout (and the earlier flash
     # kernel, when asked, beside them)
-    flash_base = None
-    if args.baseline_flash is not None:
-        k = fa.FLASH_ATTENTION_BF16_KERNEL
-        flash_base = type(k)("flash_attention_bf16_baseline",
-                             str(args.baseline_flash.resolve()),
-                             entry=k.entry, argtypes=k.argtypes,
-                             flags=k.flags)
-    builds = (*ALL_KERNELS, *([flash_base] if flash_base else []))
+    flash_base = {}
+    for dtype, path, k in (
+            (torch.bfloat16, args.baseline_flash,
+             fa.FLASH_ATTENTION_BF16_KERNEL),
+            (torch.float32, args.baseline_flash_f32,
+             fa.FLASH_ATTENTION_KERNEL)):
+        if path is not None:
+            flash_base[dtype] = type(k)(f"{k.name}_baseline",
+                                        str(path.resolve()), entry=k.entry,
+                                        argtypes=k.argtypes, flags=k.flags)
+    builds = (*ALL_KERNELS, *flash_base.values())
     for k in builds:
         k.library_path().unlink(missing_ok=True)
     build_s = build_all(builds)
@@ -3324,9 +3355,9 @@ def main(argv=None) -> int:
     print(f"build: {', '.join(k.name for k in builds)} built in "
           f"{build_s:.2f} s (nvcc, sm_90a, in parallel); -Xptxas -v "
           f"registers per instance and spilled bytes: {ptxas}", flush=True)
-    if flash_base is not None:
-        print(f"baseline: {flash_base.source}: "
-              f"{ptxas_summary(flash_base.build_log)}", flush=True)
+    for base in flash_base.values():
+        print(f"baseline: {base.source}: {ptxas_summary(base.build_log)}",
+              flush=True)
     tiles = {hd: fa.kernel.compiled_tiles(hd) for hd in fa.kernel.HEAD_DIMS}
     print(f"flash_attention_bf16 tiles (rows, keys, stages, consumers) by "
           f"head dim: compiled {tiles}, kernel.TILES {fa.kernel.TILES}",
@@ -3334,6 +3365,14 @@ def main(argv=None) -> int:
     if tiles != fa.kernel.TILES:
         raise AssertionError("the bf16 flash kernel compiled other tiles "
                              "than kernel.TILES")
+    f32_tiles = {hd: fa.kernel.compiled_f32_tiles(hd)
+                 for hd in fa.kernel.HEAD_DIMS}
+    print(f"flash_attention tiles (rows, keys, threads, CTAs an SM) by head "
+          f"dim: compiled {f32_tiles}, kernel.F32_TILES "
+          f"{fa.kernel.F32_TILES}", flush=True)
+    if f32_tiles != fa.kernel.F32_TILES:
+        raise AssertionError("the float32 flash kernel compiled other tiles "
+                             "than kernel.F32_TILES")
 
     lap("2")
     # 3. kernels vs plain, bit for bit
@@ -3487,12 +3526,23 @@ def main(argv=None) -> int:
     lap("7")
     # 8. serving times
     flash_t = {(dtype, name): time_flash(
-        dtype, window, seed=seed,
-        baseline=flash_base if dtype == torch.bfloat16 else None)
+        dtype, window, seed=seed, baseline=flash_base.get(dtype))
                for dtype in (torch.bfloat16, torch.float32)
                for name, window, seed in (("causal", None, 11),
                                           ("window1024", cfg.sliding_window,
                                            12))}
+    # the float32 kernel at seamless-m4t-large-v2's shape (phase 16's
+    # float32 check runs it there: encoder and cross non-causal, decoder
+    # self causal)
+    enc = SEAMLESS_M4T_LARGE_V2
+    f32_shape = (1, F32_PROMPT, enc.n_heads, enc.n_kv_heads,
+                 enc.resolved_head_dim)
+    for name, causal, seed in (("seamless-m4t-large-v2 noncausal", False,
+                                23),
+                               ("seamless-m4t-large-v2 causal", True, 24)):
+        flash_t[(torch.float32, name)] = time_flash(
+            torch.float32, None, seed=seed, shape=f32_shape, causal=causal,
+            baseline=flash_base.get(torch.float32))
     for (dtype, name), t in flash_t.items():
         kern = fa.choose_kernel(dtype, t["shape"][-1]).name
         print(f"time {tag}: {kern} {name} at {tuple(t['shape'])} "
@@ -3588,7 +3638,9 @@ def main(argv=None) -> int:
         shape = (1, PROMPT, cfg_.n_heads, cfg_.n_kv_heads,
                  cfg_.resolved_head_dim)
         shape_t[cfg_.name] = time_flash(torch.bfloat16, None, seed=seed,
-                                        shape=shape, baseline=flash_base)
+                                        shape=shape,
+                                        baseline=flash_base.get(
+                                            torch.bfloat16))
         print(f"time {tag}: flash_attention_bf16 causal at {shape} "
               f"({cfg_.name}): {json.dumps(shape_t[cfg_.name])}", flush=True)
     scan_wide = time_scan(seed=19, D=2 * JAMBA_15_LARGE.d_model)
@@ -3600,7 +3652,7 @@ def main(argv=None) -> int:
     # internvl2-76b at full width with 4 layers
     gc.collect()
     torch.cuda.empty_cache()
-    ev = encdec_vlm_path(flash_base)
+    ev = encdec_vlm_path(flash_base.get(torch.bfloat16))
     for name in ("seamless", "internvl2"):
         print(f"{name} serving end to end {tag}: "
               f"{json.dumps(ev[name]['serving'])}", flush=True)
@@ -3750,10 +3802,12 @@ def main(argv=None) -> int:
                              "shape", "ms", "device_ms", "plain_ms",
                              "library_ms", "library_device_ms", "bound_ms",
                              "bound_by", "mufu_floor_ms")}
-                         for name, t_ in (*shape_t.items(), *(
+                         for name, t_ in ((*shape_t.items(), *(
                              (f"seamless-m4t-large-v2 {n}", t_)
-                             for n, t_ in ev["flash_times"].items()))}
-                     if dtype == torch.bfloat16 else None})
+                             for n, t_ in ev["flash_times"].items()))
+                             if dtype == torch.bfloat16 else (
+                             (n, t_) for (d, n), t_ in flash_t.items()
+                             if d == dtype and n.startswith("seamless")))}})
     k = ms.SELECTIVE_SCAN_KERNEL
     rows.append({"name": k.name, "route": "cuda",
                  "source": str(k.source.relative_to(ROOT)),

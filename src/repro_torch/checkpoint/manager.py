@@ -64,8 +64,12 @@ def _unflatten(template, leaves: dict, prefix: str = ""):
 
 def _to_host(leaf) -> Tuple[np.ndarray, str, List[int]]:
     """A leaf as the numpy array to write, and the dtype and shape the
-    manifest records (a raw leaf's bytes are written flat)."""
-    t = torch.as_tensor(leaf).detach().cpu().contiguous()
+    manifest records (a raw leaf's bytes are written flat).  The array is a
+    copy, whatever device the leaf lies on: the train step updates
+    parameters and optimizer state in place while an async save writes
+    them (on a card, the one device -> host copy is this copy)."""
+    t = torch.as_tensor(leaf).detach().to(
+        "cpu", copy=True, memory_format=torch.contiguous_format)
     name = str(t.dtype).removeprefix("torch.")
     if name in _RAW:
         return t.reshape(-1).view(torch.uint8).numpy(), name, list(t.shape)

@@ -72,6 +72,33 @@ def compiled_tiles(hd: int) -> Tiles:
     return Tiles(*out)
 
 
+class F32Tiles(NamedTuple):
+    """One float32 instance's tiling: query rows a CTA (2048 / hd a warp),
+    keys a tile, threads a CTA, CTAs an SM."""
+    rows: int
+    keys: int
+    threads: int
+    ctas_per_sm: int
+
+
+#: the float32 kernel's tiles by head dim, as ``flash_attention.cu``'s
+#: ``Tiles<HD>`` compiles them (:func:`compiled_f32_tiles` reads them back)
+F32_TILES = {64: F32Tiles(128, 64, 128, 2), 128: F32Tiles(128, 64, 256, 1),
+             256: F32Tiles(64, 64, 256, 1)}
+
+
+def compiled_f32_tiles(hd: int) -> F32Tiles:
+    """The tiles that ``flash_attention.cu`` compiled for head dim ``hd``,
+    from its ``flash_attention_f32_tiles`` entry; builds the library on
+    first use (on the machine with the card)."""
+    out = (ctypes.c_int * 4)()
+    fn = KERNEL.symbol("flash_attention_f32_tiles", [_N, _P])
+    rc = fn(hd, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise ValueError(f"{KERNEL.name} has no instance for head_dim {hd}")
+    return F32Tiles(*out)
+
+
 def choose_kernel(dtype: torch.dtype, hd: int) -> CudaKernel:
     """The kernel for inputs of ``dtype`` and head dim ``hd``: bfloat16 to
     the tensor-core kernel, float32 to the CUDA-core one; any other dtype or

@@ -208,6 +208,16 @@ def test_bf16_flash_compiles_the_wrappers_tiles_on_the_card(card, hd):
         fa.kernel.compiled_tiles(96)
 
 
+@pytest.mark.parametrize("hd", fa.kernel.HEAD_DIMS)
+def test_f32_flash_compiles_the_wrappers_tiles_on_the_card(card, hd):
+    """``flash_attention_f32_tiles`` of the built library (query rows, keys
+    a tile, threads, CTAs an SM) is ``kernel.F32_TILES``; a head dim with
+    no instance is refused."""
+    assert fa.kernel.compiled_f32_tiles(hd) == fa.kernel.F32_TILES[hd]
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fa.kernel.compiled_f32_tiles(96)
+
+
 def test_flash_attention_refuses_an_unsupported_head_dim_on_the_card(card):
     q = torch.zeros((1, 8, 2, 96), device="cuda")
     with pytest.raises(ValueError, match="head_dim 96"):

@@ -192,6 +192,39 @@ def test_bf16_tiles_are_the_sources():
         assert t.rows == 64 * t.consumers and t.keys in (64, 128)
 
 
+def test_f32_tiles_are_the_sources():
+    """``kernel.F32_TILES`` is what ``flash_attention.cu``'s ``Tiles<HD>``
+    compiles (the card's tests read it back from the library too): 2048 /
+    hd query rows a warp, 64 keys a tile, 8 warps an SM."""
+    src = (Path(fa_kernel.__file__).parent / "csrc" /
+           "flash_attention.cu").read_text()
+    found = {int(hd): fa_kernel.F32Tiles(*map(int, args))
+             for hd, h2, *args in re.findall(
+                 r"struct Tiles<(\d+)> : TilesOf<(\d+), (\d+), (\d+), "
+                 r"(\d+), (\d+),", src) if hd == h2}
+    assert found == fa_kernel.F32_TILES
+    assert set(found) == set(fa_kernel.HEAD_DIMS)
+    for hd, t in found.items():
+        assert t.rows == 2048 // hd * t.threads // 32 and t.keys == 64
+        assert t.threads * t.ctas_per_sm == 256
+
+
+@pytest.mark.parametrize("hd", fa_kernel.HEAD_DIMS)
+def test_flash_cases_cover_each_head_dims_f32_tiles(hd):
+    """``chip_smoke.FLASH_CASES``, which the card's runs hold the float32
+    kernel to, reach every edge of head dim ``hd``'s float32 tiles: an Sq
+    off its query rows that leaves a warp part full, an Skv off its key
+    tile and a window under its key tile."""
+    import chip_smoke
+
+    t = fa_kernel.F32_TILES[hd]
+    warp_rows = 2048 // hd
+    cases = [c for c in chip_smoke.FLASH_CASES if c[5] == hd]
+    assert any(Sq % t.rows % warp_rows for _, Sq, *_ in cases)
+    assert any(Skv % t.keys for _, _, Skv, *_ in cases)
+    assert any(w is not None and w < t.keys for *_, w in cases)
+
+
 def _consumer_boundary_on_diagonal(rows, Sq, Skv, causal) -> bool:
     """A causal case whose diagonal runs from one consumer's 64 rows into
     the next one's inside a CTA of ``rows`` rows."""

@@ -21,6 +21,7 @@ import functools
 import os
 import shutil
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -28,8 +29,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 # torch's intra-op threads: this pytest-xdist worker's share of the cores
-torch.set_num_threads(max(1, os.cpu_count() // int(
-    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1))))
+WORKER_THREADS = max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", 1)))
+torch.set_num_threads(WORKER_THREADS)
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -148,6 +150,42 @@ def test_checkpoint_async_and_gc():
         assert out["b"]["c"].dtype == torch.bfloat16
         assert torch.equal(out["b"]["c"], tree["b"]["c"])
         assert out["s"].dtype == torch.int32 and int(out["s"]) == 7
+
+
+def test_checkpoint_async_save_snapshots_the_tree(monkeypatch):
+    """``save(..., blocking=False)`` writes the leaves as they were when it
+    returned: the train step updates them in place while the writer thread
+    runs.  The writer is held until every leaf has been changed, so a save
+    that wrote the live tensors would write the changed values."""
+    from repro_torch.checkpoint import manager as ckpt
+
+    changed = threading.Event()
+    np_save = ckpt.np.save
+
+    def held_save(*args, **kwargs):
+        assert changed.wait(30)
+        return np_save(*args, **kwargs)
+
+    monkeypatch.setattr(ckpt.np, "save", held_save)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        tree = {"w": torch.linspace(-1.0, 1.0, 12).reshape(3, 4),
+                "m": {"bf16": torch.full((5,), 0.375, dtype=torch.bfloat16)},
+                "step": torch.tensor([3, 4], dtype=torch.int32)}
+        want = {"w": tree["w"].clone(), "bf16": tree["m"]["bf16"].clone(),
+                "step": tree["step"].clone()}
+        mgr.save(3, tree, blocking=False)
+        tree["w"].mul_(-2.0).add_(1.0)
+        tree["m"]["bf16"].fill_(7.0)
+        tree["step"].add_(1)
+        changed.set()
+        mgr.wait()
+        out = mgr.restore(tree, step=3)
+    assert torch.equal(out["w"], want["w"])
+    assert out["m"]["bf16"].dtype == torch.bfloat16
+    assert torch.equal(out["m"]["bf16"], want["bf16"])
+    assert out["step"].dtype == torch.int32
+    assert torch.equal(out["step"], want["step"])
 
 
 def test_checkpoint_restore_shape_mismatch_raises():
@@ -454,20 +492,28 @@ def test_a_train_step_never_reaches_a_kernel_entry(monkeypatch):
             model, opt_init(ocfg, model), batch(cfg, 2, 320, 0))
 
 
-def test_launch_train_resumes_bit_identically(tmp_path):
+@pytest.mark.parametrize("threads", [1, WORKER_THREADS],
+                         ids=["one_thread", "worker_share"])
+def test_launch_train_resumes_bit_identically(tmp_path, threads):
     """The driver on the CPU: 6 steps straight, and 6 steps with
     checkpoints every 3, the last one removed, then ``--resume`` from step
-    3: the same losses."""
+    3: the same losses.  At one intra-op thread a train step is slow enough
+    that the next one updates the parameters while the async step-3 save
+    still writes them, so this case sees a save that is not a snapshot."""
     args = ["--arch", "gemma3-4b", "--reduced", "--batch", "4", "--seq-len",
             "32", "--steps", "6", "--device", "cpu", "--log-every", "100"]
-    straight = port_train.main(args)
-    ck = tmp_path / "ck"
-    port_train.main(args + ["--ckpt-dir", str(ck), "--ckpt-every", "3"])
-    assert CheckpointManager(str(ck)).steps() == [3, 6]
-    shutil.rmtree(ck / "step_6")
-    resumed = port_train.main(args + ["--ckpt-dir", str(ck), "--resume",
-                                      "--metrics-out",
-                                      str(tmp_path / "m.json")])
+    torch.set_num_threads(threads)
+    try:
+        straight = port_train.main(args)
+        ck = tmp_path / "ck"
+        port_train.main(args + ["--ckpt-dir", str(ck), "--ckpt-every", "3"])
+        assert CheckpointManager(str(ck)).steps() == [3, 6]
+        shutil.rmtree(ck / "step_6")
+        resumed = port_train.main(args + ["--ckpt-dir", str(ck), "--resume",
+                                          "--metrics-out",
+                                          str(tmp_path / "m.json")])
+    finally:
+        torch.set_num_threads(WORKER_THREADS)
     assert resumed["losses_tail"] == straight["losses_tail"][-3:]
     assert resumed["final_loss"] == straight["final_loss"]
     assert np.isfinite(straight["first_loss"])

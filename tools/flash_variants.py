@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Time variants of the bf16 flash-attention kernel on one NVIDIA card.
+"""Time variants of the flash-attention kernels on one NVIDIA card.
 
     python3 tools/flash_variants.py [--earlier FILE] [--shapes NAME ...]
                                     [--out FILE] [NAME ...]
+    python3 tools/flash_variants.py --f32 [--earlier FILE]
+                                    [--shapes NAME ...] [--out FILE]
+                                    [NAME ...]
 
 Each variant is ``src/repro_torch/kernels/flash_attention/csrc/
 flash_attention_sm90.cu`` with a few text substitutions (``VARIANTS``):
@@ -21,6 +24,15 @@ over the per-element tolerance of ``chip_smoke.flash_bf16_bound`` on the
 bf16 ``chip_smoke.FLASH_CASES`` and at each timed shape, and its CUDA-event
 and profiler device ms through the bare entry point at the serving shapes
 (``SHAPES``).  The card's name and power limit come first.
+
+With ``--f32`` the variants (``F32_VARIANTS``) are of the float32 kernel,
+``flash_attention.cu``: one part taken out (the products, the softmax, the
+copies of k and v after the first tile), or the earlier launch order; the
+``f32_earlier`` variant is the ``--earlier`` source as it is (e.g. ``git
+show 4db9fe8:src/repro_torch/kernels/flash_attention/csrc/
+flash_attention.cu``).  Errors are the largest difference from the plain
+version over ``chip_smoke.FLASH_TOL`` (2e-5) on the float32
+``FLASH_CASES`` and at each of ``F32_SHAPES``.
 """
 from __future__ import annotations
 
@@ -34,6 +46,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = (ROOT / "src/repro_torch/kernels/flash_attention/csrc/"
           "flash_attention_sm90.cu")
+SOURCE_F32 = (ROOT / "src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention.cu")
 WORK = ROOT / "build" / "flash_variants"
 #: seconds a variant's process may take (build and every shape)
 TIMEOUT_S = 300
@@ -47,6 +61,14 @@ SHAPES = {
     "arctic-480b": (1, 4096, 56, 8, 128, True, None),
     "gemma3-4b": (1, 4096, 8, 4, 256, True, None),
     "gemma3-4b-window1024": (1, 4096, 8, 4, 256, True, 1024),
+}
+#: the float32 kernel's timed shapes: gemma3-4b's period in float32
+#: (phase 7) and seamless-m4t-large-v2's float32 check (phase 16)
+F32_SHAPES = {
+    "gemma3-4b": (1, 4096, 8, 4, 256, True, None),
+    "gemma3-4b-window1024": (1, 4096, 8, 4, 256, True, 1024),
+    "seamless-noncausal": (1, 2048, 16, 16, 64, False, None),
+    "seamless-causal": (1, 2048, 16, 16, 64, True, None),
 }
 
 
@@ -169,20 +191,102 @@ VARIANTS = {
 }
 
 
+# the float32 kernel's parts, taken out (outputs wrong on purpose)
+F32_NO_S = ("      s_product<T>(s, qp, kp);\n", "")
+F32_NO_PV = ("    if (sees) pv_product<T>(acc, pw + 8 * rg, Vs + 4 * cg);\n",
+             "")
+F32_NO_EXP = [("    alpha[ii] = exp2f(m[ii] - m_new);\n",
+               "    alpha[ii] = m[ii] - m_new;\n"),
+              ("      s[ii][j] = exp2f(s[ii][j] - m_new);\n",
+               "      s[ii][j] = s[ii][j] - m_new;\n")]
+# the masks, max, exp2 and sums: the scores go to the P tile as they are
+# (the reduce-scatter stays, so S is still computed)
+F32_NO_SOFTMAX = [(
+    "#pragma unroll\n  for (int ii = 0; ii < NR; ++ii) {\n"
+    "    const int qi = qi0 + T::RG * ii;\n",
+    "#pragma unroll\n  for (int ii = 0; ii < NR; ++ii) alpha[ii] = 1.f;\n"
+    "#pragma unroll\n  for (int ii = 0; ii < 0; ++ii) {\n"
+    "    const int qi = qi0 + T::RG * ii;\n")]
+F32_COPIES_ONLY = [
+    ("      reduce_scatter<T::DS / 2, T::DS>(s, lane);\n", ""),
+    ("      if (whole)\n"
+     "        softmax<T, false>(s, m, l, alpha, p_at, qi0, k0 + kg, Sq, Skv,\n"
+     "                          causal, window, scale_log2);\n"
+     "      else\n"
+     "        softmax<T, true>(s, m, l, alpha, p_at, qi0, k0 + kg, Sq, Skv,\n"
+     "                         causal, window, scale_log2);\n",
+     "      for (int ii = 0; ii < NR; ++ii) alpha[ii] = 1.f;\n")]
+# the k and v tiles after the first are not copied (the products run on
+# the first tile's)
+F32_NO_COPIES = [
+    ("    if (next)\n"
+     "      copy_tile<T, BK>(sK, kb + (int64_t)(k0 + BK) * kv_stride, "
+     "kv_stride,\n"
+     "                       Skv - k0 - BK);\n", ""),
+    ("    if (next)\n"
+     "      copy_tile<T, BK>(sV, vb + (int64_t)(k0 + BK) * kv_stride, "
+     "kv_stride,\n"
+     "                       Skv - k0 - BK);\n", "")]
+
+_PV_LOOP = "#pragma unroll 8\n  for (int j = 0; j < BK; ++j) {\n"
+
+F32_NO_SNAKE = ("  if (sms > 0 && (int)gridDim.x <= sms * T::kCtasPerSm) {\n",
+                "  if (false) {\n")
+
+#: name -> substitutions on flash_attention.cu (``f32_earlier``: on the
+#: --earlier source, none)
+F32_VARIANTS = {
+    "f32_kernel": [],
+    "f32_no_s": [F32_NO_S],
+    "f32_no_pv": [F32_NO_PV],
+    "f32_no_exp": F32_NO_EXP,
+    "f32_no_softmax": F32_NO_SOFTMAX,
+    "f32_copies_only": [F32_NO_S, F32_NO_PV, *F32_COPIES_ONLY],
+    # every tile's scores through the per-element mask
+    "f32_mask_all": [("      if (whole)\n        softmax<T, false>",
+                      "      if (false)\n        softmax<T, false>")],
+    "f32_no_copies": F32_NO_COPIES,
+    # the earlier launch order: the query tiles of one head together, no
+    # turned rounds
+    "f32_qt_fastest": [*VARIANTS["qt_fastest"], F32_NO_SNAKE],
+    # no turned rounds in a grid of one wave
+    "f32_no_snake": [F32_NO_SNAKE],
+    # other unrolling of the two products' loops
+    "f32_hd256_s_unroll2": [(
+        "struct Tiles<256> : TilesOf<256, 64, 64, 256, 1, 4, 4> {};",
+        "struct Tiles<256> : TilesOf<256, 64, 64, 256, 1, 4, 2> {};")],
+    "f32_pv_unroll4": [(_PV_LOOP, _PV_LOOP.replace("unroll 8", "unroll 4"))],
+    "f32_earlier": [],
+}
+
+
 def variant_text(name: str, earlier: Path = None) -> str:
     """The source with variant ``name``'s substitutions made; each must
     match the source."""
-    if name.startswith("earlier"):
+    if name.startswith("earlier") or name == "f32_earlier":
         if earlier is None:
             raise ValueError(f"variant {name} needs --earlier")
         text = earlier.read_text()
     else:
-        text = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
+        text = (SOURCE_F32 if name in F32_VARIANTS else SOURCE).read_text()
+    for old, new in {**VARIANTS, **F32_VARIANTS}[name]:
         if old not in text:
             raise ValueError(f"variant {name}: {old!r} is not in the source")
         text = text.replace(old, new)
     return text
+
+
+def instances(log: str) -> list:
+    """Each kernel instance's head dim (its first integer template
+    argument), registers and spilled bytes, from ``nvcc -Xptxas -v``."""
+    names = re.findall(r"Compiling entry function '(\w+)'", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", log)
+    regs = re.findall(r"Used (\d+) registers", log)
+    return [{"hd": int((re.findall(r"ILi(\d+)E", n) or ["0"])[0]),
+             "registers": int(r), "spill_stores": int(st),
+             "spill_loads": int(ld)}
+            for n, (st, ld), r in zip(names, spills, regs)]
 
 
 def worker(name: str, earlier: Path, shapes) -> dict:
@@ -195,31 +299,40 @@ def worker(name: str, earlier: Path, shapes) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.build import CudaKernel, build_all
 
-    k0 = fa.FLASH_ATTENTION_BF16_KERNEL
+    f32 = name in F32_VARIANTS
+    dtype = torch.float32 if f32 else torch.bfloat16
+    k0 = fa.choose_kernel(dtype, 64)
     WORK.mkdir(parents=True, exist_ok=True)
-    source = WORK / f"flash_attention_sm90_{name}.cu"
+    source = WORK / f"{k0.source.stem}_{name}.cu"
     source.write_text(variant_text(name, earlier))
-    k = CudaKernel(f"flash_attention_bf16_{name}", str(source),
-                   entry=k0.entry, argtypes=k0.argtypes, flags=k0.flags)
+    k = CudaKernel(f"{k0.name}_{name}", str(source), entry=k0.entry,
+                   argtypes=k0.argtypes, flags=k0.flags)
     k.library_path().unlink(missing_ok=True)
     out = {"variant": name, "build_s": build_all([k]),
-           **cs.ptxas_summary(k.build_log)}
+           **cs.ptxas_summary(k.build_log),
+           "instances": instances(k.build_log)}
 
     def err(q, kk, v, causal, window):
         _, o = cs.flash_entry(k, q, kk, v, causal, window)
+        if f32:
+            want = fa.flash_attention_ref(q, kk, v, causal=causal,
+                                          window=window)
+            e = cs.max_abs_err(o, want)
+            return e / cs.FLASH_TOL[torch.float32], e
         want, tol = cs.flash_bf16_bound(q, kk, v, causal, window)
         d = (o.float() - want).abs()
         return (float((d / tol).nan_to_num(nan=0.0, posinf=1e30).max()),
                 float(d.max()))
 
     out["cases_err_over_tol"] = max(
-        err(*cs.flash_inputs(B, Sq, Skv, H, K, hd, torch.bfloat16, seed=i),
+        err(*cs.flash_inputs(B, Sq, Skv, H, K, hd, dtype, seed=i),
             causal, window)[0]
         for i, (B, Sq, Skv, H, K, hd, causal, window)
         in enumerate(cs.FLASH_CASES))
     for label in shapes:
-        B, S, H, K, hd, causal, window = SHAPES[label]
-        q, kk, v = cs.flash_inputs(B, S, S, H, K, hd, torch.bfloat16,
+        B, S, H, K, hd, causal, window = (F32_SHAPES if f32
+                                          else SHAPES)[label]
+        q, kk, v = cs.flash_inputs(B, S, S, H, K, hd, dtype,
                                    seed=len(label))
         e, e_abs = err(q, kk, v, causal, window)
         call, _ = cs.flash_entry(k, q, kk, v, causal, window)
@@ -234,20 +347,24 @@ def worker(name: str, earlier: Path, shapes) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*",
-                    help="variants to run (default: all; the earlier* ones "
-                    "only with --earlier)")
+                    help="variants to run (default: all of the kernel's; "
+                    "the earlier ones only with --earlier)")
+    ap.add_argument("--f32", action="store_true",
+                    help="variants of the float32 kernel (F32_VARIANTS)")
     ap.add_argument("--earlier", type=Path, default=None,
-                    help="an earlier flash_attention_sm90.cu for the "
-                    "earlier* variants")
-    ap.add_argument("--shapes", nargs="+", default=list(SHAPES),
-                    choices=list(SHAPES))
+                    help="an earlier flash_attention_sm90.cu (with --f32: "
+                    "flash_attention.cu) for the earlier variants")
+    ap.add_argument("--shapes", nargs="+", default=None,
+                    choices=sorted({*SHAPES, *F32_SHAPES}))
     ap.add_argument("--out", type=Path, default=None,
                     help="also append each JSON line to this file")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     earlier = args.earlier.resolve() if args.earlier else None
-    args.names = args.names or [n for n in VARIANTS
-                                if earlier or not n.startswith("earlier")]
+    family = F32_VARIANTS if args.f32 else VARIANTS
+    args.shapes = args.shapes or list(F32_SHAPES if args.f32 else SHAPES)
+    args.names = args.names or [n for n in family
+                                if earlier or "earlier" not in n]
     if args.worker:
         print(json.dumps(worker(args.names[0], earlier, args.shapes)),
               flush=True)
