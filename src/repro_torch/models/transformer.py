@@ -22,6 +22,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.obs.spans import span
 from repro_torch.sharding.ctx import (is_dtensor, project, shard, shards,
                                      sum_partials, unflatten)
 
@@ -208,13 +209,16 @@ def lm_forward(cfg: ModelConfig, model: LM, batch, *, impl=None,
     attention path (``cfg.attn_impl`` unless given), ``scan_impl`` the
     mamba layers' scan (``models/ssm.py``)."""
     impl = impl or cfg.attn_impl
-    x = _input_embeds(cfg, model, batch)
+    with span("model.embed"):
+        x = _input_embeds(cfg, model, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x = shard(x, "act_btd")
     for layer in model.layers:
-        x = remat(cfg, _apply_layer, cfg, layer, x, positions, impl,
-                  scan_impl)
-    return model.final_norm(x)
+        with span("model.layer"):
+            x = remat(cfg, _apply_layer, cfg, layer, x, positions, impl,
+                      scan_impl)
+    with span("model.final_norm"):
+        return model.final_norm(x)
 
 
 def head_weights(cfg: ModelConfig, model: LM):

@@ -18,6 +18,19 @@ Quick start::
     ... invoke/complete ...
     print(obs.render())                       # Prometheus-style exposition
     timeline = obs.tracer.chrome_trace()      # open in ui.perfetto.dev
+
+Wall-clock spans (:mod:`repro_torch.obs.spans`) inside ``Engine.submit``
+and the prefill step have one switch, the torch profiler: with none
+recording, each site costs a flag read.  Run traffic under it, then read
+the spans or open the profiler's Chrome trace::
+
+    from torch.profiler import profile
+    from repro_torch.obs import spans
+
+    with profile() as prof:
+        ... engine.submit(...) ...
+    rows = spans.records()                    # (name, t0_ns, t1_ns)
+    prof.export_chrome_trace("trace.json")    # the spans beside the kernels
 """
 from __future__ import annotations
 
@@ -40,7 +53,7 @@ from .attribution import (
     summarize as summarize_attribution,
 )
 from .slo import SloEngine, SloObjective
-from . import schema
+from . import schema, spans
 
 __all__ = [
     "Obs", "MetricsRegistry", "Counter", "Gauge", "Histogram",

@@ -58,6 +58,7 @@ from repro_torch.core.decision import Decision
 from repro_torch.core.scheduler import explain as _explain_scalar
 from repro_torch.core.sharded import ShardedSession
 from repro_torch.core.state import Activation, ClusterState, Registry
+from repro_torch.obs import spans
 from repro_torch.resilience import DEFAULT_TENANT, LostActivation
 
 ClusterLike = Union[None, ClusterState, Mapping[str, float],
@@ -205,6 +206,9 @@ class Platform:
             "workers": len(self.state.workers()),
             "tags": len(self.session.tag_index),
             "lost_activations": self.lost_activations})
+        reg.register_collector("spans", lambda: {
+            "records": len(spans.RING.events),
+            "dropped": spans.RING.dropped_spans})
         if self.resilience is not None:
             self.resilience.register_into(reg)
         if self.pool is not None:

@@ -51,6 +51,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.deprecation import warn_once
 from repro_torch.cluster.topology import CellSpec, zone_map
+from repro_torch.obs.spans import span
 from repro_torch.platform import Platform
 from repro_torch.pool import WarmPool
 
@@ -320,32 +321,39 @@ class Engine:
     def submit(self, req: Request) -> Completion:
         req.rid = req.rid or f"r{next(self._ids)}"
         req.submitted_at = self.clock()
-        self.check_health()
+        with span("engine.health"):
+            self.check_health()
         fname = f"{req.kind}-{req.model}" if req.kind != "train" else "train-job"
-        if self.forecast is not None and req.kind != "train" and not req.hedged:
-            self.forecast.observe(fname, req.submitted_at)
-        script = self._policy_for(req)
+        with span("engine.policy"):
+            if (self.forecast is not None and req.kind != "train"
+                    and not req.hedged):
+                self.forecast.observe(fname, req.submitted_at)
+            script = self._policy_for(req)
         tr = self._tracer
         if tr is not None:
             tr.begin(req.submitted_at, fname, None)
         # pool-backed warmth ranks (vectorized via WarmPool.warmth_row)
         warmth = "auto" if req.kind != "train" else None
-        cell = self.scheduler.try_schedule(fname, script=script, warmth=warmth,
-                                           rng=self.rng)
+        with span("engine.schedule"):
+            cell = self.scheduler.try_schedule(fname, script=script,
+                                               warmth=warmth, rng=self.rng)
         if cell is None:
             if tr is not None:
                 tr.decision(self.clock(), fname, None, None)
             comp = Completion(req.rid, "<none>", False, 0.0)
             self.completions.append(comp)
             return comp
-        act = self.state.allocate(fname, cell, self.reg)
-        start_cost = self._container_acquire(fname, req, cell, act.activation_id)
+        with span("engine.allocate"):
+            act = self.state.allocate(fname, cell, self.reg)
+            start_cost = self._container_acquire(fname, req, cell,
+                                                 act.activation_id)
         if tr is not None:
             tr.invoke(act.activation_id, self.clock(), fname, cell,
                       self._last_kind, start_cost, None)
-        t0 = self.clock()
-        result = self.runner(req, cell)
-        run_latency = self.clock() - t0
+        with span("engine.run"):
+            t0 = self.clock()
+            result = self.runner(req, cell)
+            run_latency = self.clock() - t0
         latency = run_latency + start_cost
         if self.forecast is not None and req.kind != "train":
             self.forecast.observe_service(fname, run_latency)
@@ -380,12 +388,14 @@ class Engine:
                 if l2 < latency:
                     result, hedge_won = result2, True
 
-        self._container_release(act.activation_id)
-        self.state.complete(act.activation_id)
+        with span("engine.release"):
+            self._container_release(act.activation_id)
+            self.state.complete(act.activation_id)
         if tr is not None:
             tr.complete(act.activation_id, self.clock())
         if req.kind == "prefill" and req.session:
-            self._bind_session(req.session, req.model, cell)
+            with span("engine.bind"):
+                self._bind_session(req.session, req.model, cell)
         comp = Completion(req.rid, cell, True, latency, result, hedge_won)
         self.completions.append(comp)
         return comp

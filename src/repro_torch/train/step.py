@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (model_decode_step, model_forward,
                                       model_loss)
 from repro_torch.models.transformer import lm_logits
+from repro_torch.obs.spans import span
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import GradCompressor
 
@@ -118,7 +119,8 @@ def make_prefill_step(cfg: ModelConfig, *, impl: str = None,
     def prefill_step(model, batch):
         hidden = model_forward(cfg, model, batch, impl=impl,
                                scan_impl=scan_impl)
-        return lm_logits(cfg, model, hidden[:, -1:])[:, 0]
+        with span("model.head"):
+            return lm_logits(cfg, model, hidden[:, -1:])[:, 0]
 
     return prefill_step
 

@@ -146,10 +146,17 @@ def test_decision_log_equals_the_reference(verdicts):
     assert port_obs.validate_chrome_trace(trace) == []
 
 
+def _shared(snap):
+    """A snapshot without the port's own ``spans.*`` collector keys (the
+    wall-clock span ring, ``repro_torch.obs.spans``, which the reference
+    does not have)."""
+    return {k: v for k, v in snap.items() if not k.startswith("spans.")}
+
+
 def _stable(snap):
-    """A snapshot without the stage timers' wall-clock values (their
+    """A shared snapshot without the stage timers' wall-clock values (their
     counts stay: the sampling gate is a deterministic counter)."""
-    return {k: v for k, v in snap.items()
+    return {k: v for k, v in _shared(snap).items()
             if not (k.startswith("sched.stage.") and not k.endswith(".count"))}
 
 
@@ -177,7 +184,8 @@ def test_snapshot_keys_equal_the_reference():
     r = _platform(False, pool=_pool(False), obs=ref)
     assert _drive(p, n=300) == _drive(r, n=300)
     snap, want = obs.snapshot(), ref.snapshot()
-    assert list(snap) == list(want)
+    assert list(_shared(snap)) == list(want)
+    assert {"spans.records", "spans.dropped"} == set(snap) - set(want)
     assert _stable(snap) == _stable(want)
     assert snap["sched.stage.mask_build_s.count"] > 0
     assert p.stats() == r.stats()
