@@ -32,7 +32,12 @@ Phases, one line each (every time beside the card's name and power limit):
    8, every N, float32 and bfloat16 inputs, and jamba's D = 16384), and on
    a long memory (a = -0.01 exp(normal), S = 2085) within 1e-4
    max(1, max |y|), where the plain version with the state reset at a
-   chunk boundary must miss by 100x that;
+   chunk boundary must miss by 100x that; the SSM block's conv kernel
+   (``CONV_CASES``: the serving shape, jamba's d_inner, 1 to 3 and 198
+   tokens, a ragged d_inner, float32) bit for bit before its SiLU (a bias
+   shifted by 32) and within one ulp after it, and the scan's second entry
+   (``FUSED_CASES``: B and C read in place and copied, every N, ragged S
+   and D) within 1e-4 max(1, max |out|) plus one bf16 ulp;
 4. decision path — the port's ``Platform`` on the reference scheduler-scale rig
    (16384 workers of 64 MB, 50% pre-occupied, 5% sparse warm residency):
    512 ``decide()`` calls, ``decide_batch`` waves of 512 with
@@ -85,13 +90,15 @@ Phases, one line each (every time beside the card's name and power limit):
    mamba layers, d_inner 8192, N = 16, bf16, weights drawn on the card)
    behind the same engine, deployment, sessions, decodes and cell failure
    as phase 6: every completion ok, every decode on its session's cell,
-   every logit finite, the selective-scan counter moved by exactly 64 per
-   prefill and the flash counters not at all.  Then the scan kernel against
-   its plain version on the dt / x / b / c / a of the first layer of the
-   first live prefill, within 1e-4 max(1, max |y|);
+   every logit finite, the conv kernel's and the scan's second entry's
+   counters moved by exactly 64 per prefill, the first scan entry's and the
+   flash counters not at all.  Then the second entry against its plain
+   version on the first layer's inputs of the first live prefill, within
+   1e-4 max(1, max |out|) plus one bf16 ulp;
 10. SSM model in float32 — falcon-mamba-7b at full width with 2 layers,
-   S = 2048: the prefill's logits at every position through the kernel
-   against its plain version on the card, within 1e-4 max(1, max |logit|)
+   S = 2048: the prefill's logits at every position through the block's
+   kernels against their plain versions on the card, within 1e-4 max(1,
+   max |logit|)
    (``model_f32``, which phase 15 runs on jamba);
 11. SSM times — the scan kernel at (1, 4096, 8192, 16) with the serving
    path's types (dt float32, x / b / c bf16): CUDA-event and profiler ms,
@@ -100,7 +107,9 @@ Phases, one line each (every time beside the card's name and power limit):
    entry, the checked kernel wrapper and the package entry, back to back,
    by events and by host enqueue time); with ``--baseline-scan PATH`` an
    earlier ``selective_scan.cu`` built and timed beside it, in turns, on
-   the same inputs; falcon-mamba-7b's prefill ms and tokens/s,
+   the same inputs; the conv kernel and the scan's second entry at the
+   serving shape in bf16 (``time_block_kernels``); falcon-mamba-7b's
+   prefill ms and tokens/s,
    decode ms per token, scheduling us per request, and where one prefill's
    and one decode step's time goes (scan kernel, matrix products, the
    rest, idle share);
@@ -1776,12 +1785,13 @@ def compare_scan(dt, x, b, c, a, *, relative: bool = False):
 
 
 class ScanCapture:
-    """Stands in for the package's ``selective_scan`` during the serving
-    run and keeps the inputs of its first call (the first layer of the
-    first prefill); every call goes on to the kernel."""
+    """Stands in for the package's ``selective_scan_fused`` (the entry the
+    mamba block's prefill calls) during the serving run and keeps the
+    inputs of its first call (the first layer of the first prefill); every
+    call goes on to the kernel."""
 
     def __init__(self):
-        self.kernel = ms.selective_scan
+        self.kernel = ms.selective_scan_fused
         self.first = None
 
     def __call__(self, *args, **kw):
@@ -1790,37 +1800,264 @@ class ScanCapture:
         return self.kernel(*args, **kw)
 
 
+def ulps_beyond(got: torch.Tensor, want: torch.Tensor, tol: float = 0.0):
+    """Per element, |got - want| less ``tol``, in units in the last place of
+    got's type at max(|got|, |want|) (bf16: 8 bits, float32: 24); the
+    largest, and the share of elements equal bit for bit."""
+    bits = {torch.bfloat16: 8, torch.float32: 24}[got.dtype]
+    g, w = got.double(), want.double()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - bits)
+    over = ((g - w).abs() - tol).clamp(min=0.0) / ulp
+    over[g == w] = 0.0
+    return (float(over.max()) if over.numel() else 0.0,
+            float((got == want).double().mean()) if got.numel() else 1.0)
+
+
+#: (B, S, D, dtype): the conv kernel's card cases: the serving shape
+#: (falcon-mamba-7b's d_inner) and jamba's, prompts of 1, 2 and 3 tokens
+#: (shorter than the conv's width) and 198 (the cell's shortest), a ragged
+#: d_inner (200: off the bf16 vector of 8 and the block's channels) and
+#: float32, B > 1 off the token tile
+CONV_CASES = [
+    (1, 4096, 8192, "bfloat16"), (1, 4096, 16384, "bfloat16"),
+    (1, 1, 8192, "bfloat16"), (1, 2, 8192, "bfloat16"),
+    (1, 3, 8192, "bfloat16"), (1, 198, 8192, "bfloat16"),
+    (2, 77, 200, "bfloat16"), (2, 77, 200, "float32"),
+    (1, 130, 8192, "float32"), (3, 5, 36, "float32")]
+#: the conv check's bias shift: above v ~ 16.6, 1 + exp(-v) rounds to 1 in
+#: float32, so SiLU is the identity and the output is the conv's sum itself
+CONV_SHIFT = 32.0
+
+
+def conv_inputs(B, S, D, dtype: str, seed: int, shift: float = 0.0):
+    """Seeded conv inputs on the card as the block has them: x the first
+    half of an in_proj-shaped [B, S, 2 D] product (a view, rows of 2 D),
+    w [D, 4] at 1/2 the scale of normal, b = 0.1 normal + ``shift``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    randn = functools.partial(torch.randn, generator=g, device="cuda")
+    t = getattr(torch, dtype)
+    xz = randn((B, S, 2 * D)).to(t)
+    return (xz[..., :D], (0.5 * randn((D, 4))).to(t),
+            (0.1 * randn((D,)) + shift).to(t))
+
+
+def conv_check(B, S, D, dtype: str, seed: int) -> dict:
+    """The conv kernel against its plain version on the same card inputs.
+    Before SiLU: with the bias shifted by CONV_SHIFT (SiLU the identity),
+    the kernel's output equals the block's own ``causal_conv`` (taps,
+    bias, cast) bit for bit.  After it: within one ulp of the output type
+    of the plain version, element by element.  Raises otherwise; returns
+    the ulps and the share of elements equal."""
+    from repro_torch.models.ssm import causal_conv
+
+    x, w, b = conv_inputs(B, S, D, dtype, seed, CONV_SHIFT)
+    pre = causal_conv(x, w, b)[0]
+    got = ms.causal_conv_silu(x, w, b)
+    torch.cuda.synchronize()
+    low = float(pre.float().min())
+    if not low > 17.5 or not torch.equal(got, pre):
+        raise AssertionError(
+            f"causal_conv_silu before SiLU (bias + {CONV_SHIFT}, smallest sum "
+            f"{low}) differs from the plain conv at {(B, S, D, dtype)}: "
+            f"{ulps_beyond(got, pre)}")
+    x, w, b = conv_inputs(B, S, D, dtype, seed)
+    got = ms.causal_conv_silu(x, w, b)
+    want = ms.causal_conv_silu(x, w, b, backend="ref")
+    torch.cuda.synchronize()
+    ulps, equal = ulps_beyond(got, want)
+    if got.shape != want.shape or got.dtype != want.dtype or not ulps <= 1:
+        raise AssertionError(f"causal_conv_silu differs from its plain "
+                             f"version by {ulps} ulp at {(B, S, D, dtype)}")
+    return {"case": [B, S, D, dtype], "ulps": ulps, "equal_share": equal}
+
+
+#: (B, S, D, N, dtype, dt_rank): the fused scan entry's card cases, B and C
+#: sliced from an x_proj-shaped [B, S, dt_rank + 2 N] product: the serving
+#: shape (falcon-mamba-7b: dt_rank 256, B and C read in place), jamba's
+#: d_inner (dt_rank 512, in place), float32 in place at a ragged tile, and
+#: views whose alignment forces the copy (bf16 N = 4 rows of 8 bytes; an
+#: offset of 10 bytes), D off a multiple of 8 (plain-load staging), every
+#: N, B > 1
+FUSED_CASES = [
+    (1, 4096, 8192, 16, "bfloat16", 256),
+    (1, 70, 16384, 16, "bfloat16", 512),
+    (2, 333, 1000, 16, "float32", 8),
+    (1, 257, 97, 4, "bfloat16", 3),
+    (2, 129, 64, 8, "bfloat16", 5),
+    (1, 200, 130, 32, "bfloat16", 8),
+    (3, 77, 40, 2, "float32", 4),
+    (1, 5, 8, 1, "float32", 2),
+    (2, 150, 72, 16, "float32", 12),
+]
+
+
+def fused_inputs(B, S, D, N, dtype: str, dt_rank: int, seed: int):
+    """Seeded inputs of the fused entry on the card, as the block makes
+    them: dt_proj = normal - 1, dt_b 0.1 normal, x = silu(normal), z the
+    second half of an in_proj-shaped [B, S, 2 D] product, b and c slices of
+    an x_proj-shaped [B, S, dt_rank + 2 N] one, a_log = log(1..N) + 0.1
+    normal, d_skip 1 + 0.1 normal.  At a few places dt_proj passes
+    softplus's threshold of 20 and x is divided by 30 there, so that dt x,
+    and the output, keep the others' scale (the check's tolerance scales
+    with the largest |output|)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    randn = functools.partial(torch.randn, generator=g, device="cuda")
+    t = getattr(torch, dtype)
+    dt_proj = randn((B, S, D)) - 1.0
+    x = torch.nn.functional.silu(randn((B, S, D)))
+    dt_proj[:, ::97, ::13] += 30.0
+    x[:, ::97, ::13] /= 30.0
+    xz = randn((B, S, 2 * D)).to(t)
+    proj = randn((B, S, dt_rank + 2 * N)).to(t)
+    _, b, c = proj.split([dt_rank, N, N], dim=-1)
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                   device="cuda")).repeat(D, 1) \
+        + 0.1 * randn((D, N))
+    return (dt_proj.to(t), (0.1 * randn((D,))).to(t), x.to(t), xz[..., D:],
+            b, c, a_log, 1.0 + 0.1 * randn((D,)))
+
+
+def compare_fused(*ins, relative: bool = True):
+    """The fused scan entry against its plain version on the same card
+    inputs: element by element within SCAN_TOL (times max(1, max |out|)
+    when ``relative``, as :func:`compare_scan` scales it) plus, for bf16
+    outputs, one bf16 ulp (the two sides' casts may round the float32
+    values to neighbours).  Raises past it; returns the largest excess in
+    ulps (0 where within SCAN_TOL alone), the plain output's largest and
+    median |value|, the share of elements equal, and whether B and C were
+    read in place."""
+    got = ms.selective_scan_fused(*ins)
+    want = ms.selective_scan_fused(*ins, backend="ref")
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError("selective_scan_fused returned another dtype "
+                             "or shape than its plain version")
+    top = float(want.abs().max())
+    tol = SCAN_TOL * (max(1.0, top) if relative else 1.0)
+    if got.dtype == torch.float32:
+        err, equal = max_abs_err(got, want), float((got == want).double()
+                                                   .mean())
+        ok, excess = err <= tol, 0.0
+    else:
+        excess, equal = ulps_beyond(got, want, tol)
+        ok = excess <= 1
+    if not ok:
+        raise AssertionError(
+            f"selective_scan_fused differs from its plain version beyond "
+            f"{tol} (+ 1 bf16 ulp) at x {tuple(ins[2].shape)} {got.dtype}, "
+            f"b {tuple(ins[4].shape)}: {excess} ulp")
+    return {"ulps_beyond_tol": excess, "max_abs_output": top,
+            "median_abs_output": float(want.float().abs().median()),
+            "equal_share": equal,
+            "bc_in_place": ms.kernel.bc_in_place(ins[4], ins[5])}
+
+
+def fused_entry(kernel, dt_proj, dt_b, x, z, b, c, a_log, d_skip):
+    """The bare ctypes entry point of ``kernel`` (a CudaKernel with
+    ``selective_scan_fused_launch``'s signature) on these card inputs, as
+    :func:`scan_entry` makes the first entry's: z read in place, b and c
+    where ``bc_in_place`` (else copied once, here), the output allocated and
+    every argument converted once.  Returns the call and the output."""
+    import ctypes
+
+    if not ms.kernel.bc_in_place(b, c):
+        b, c = b.contiguous(), c.contiguous()
+    B, S, D = x.shape
+    out = torch.empty((B, S, D), dtype=x.dtype, device=x.device)
+    ts = (dt_proj, dt_b, x, z, b, c, a_log, d_skip, out)
+    fn = kernel.fn()
+    args = (*(ctypes.c_void_p(t.data_ptr()) for t in ts),
+            *(ctypes.c_int64(v) for v in (B, S, D, a_log.shape[1],
+                                          z.stride(1), b.stride(1),
+                                          int(x.dtype == torch.bfloat16))),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    def call(buffers=ts):  # alive as long as the call
+        return fn(*args)
+
+    rc = call()
+    if rc != 0:
+        raise AssertionError(f"{kernel.name}: the bare launch failed: CUDA "
+                             f"error {rc}")
+    return call, out
+
+
+def time_block_kernels(seed: int, D: int = 2 * FALCON_MAMBA_7B.d_model,
+                       dt_rank: int = FALCON_MAMBA_7B.ssm.resolved_dt_rank(
+                           FALCON_MAMBA_7B.d_model)) -> dict:
+    """The block's two further kernels at the serving shape (1, 4096, D)
+    in bf16, their inputs made as the block makes them (views read in
+    place): CUDA-event ms through the package entry, profiler device ms,
+    the plain version's ms, and the bound: every byte read once and
+    written once over HBM; for the fused entry also its MUFU floor (N exp2
+    per (t, d, n), and per (t, d) softplus's ex2 and lg2 and silu's ex2
+    and rcp), at the exp2 rate."""
+    B, S, N = 1, PROMPT, FALCON_MAMBA_7B.ssm.d_state
+    x, w, b = conv_inputs(B, S, D, "bfloat16", seed)
+    conv = lambda: ms.causal_conv_silu(x, w, b)  # noqa: E731
+    conv_plain = lambda: ms.causal_conv_silu(x, w, b,  # noqa: E731
+                                             backend="ref")
+    conv_bytes = 2 * B * S * D * 2 + w.numel() * 2 + b.numel() * 2
+    ins = fused_inputs(B, S, D, N, "bfloat16", dt_rank, seed)
+    fused = lambda: ms.selective_scan_fused(*ins)  # noqa: E731
+    fused_plain = lambda: ms.selective_scan_fused(  # noqa: E731
+        *ins, backend="ref")
+    fused_bytes = (4 * B * S * D * 2 + 2 * B * S * N * 2 + D * N * 4
+                   + D * 4 + D * 2)
+    out = {}
+    for name, fn, plain, nbytes, iters in (
+            ("causal_conv_silu", conv, conv_plain, conv_bytes, 50),
+            ("selective_scan_fused", fused, fused_plain, fused_bytes, 2)):
+        out[name] = {
+            "shape": [B, S, D] + ([N] if name != "causal_conv_silu" else []),
+            "types": "bf16 (a_log, d_skip f32)",
+            "ms": cuda_ms(fn, iters=50, warmup=5),
+            "device_ms": device_ms(fn, iters=20),
+            "plain_ms": cuda_ms(plain, iters=iters, warmup=1),
+            "plain_device_ms": device_ms(plain, iters=min(iters, 10)),
+            "mbytes": nbytes / 1e6,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    out["selective_scan_fused"]["mufu_floor_ms_at_1.98GHz"] = \
+        B * S * D * (N + 4) / MUFU_EXP2_PER_S * 1e3
+    for t in out.values():
+        t["bound_share_of_device"] = t["bound_ms"] / t["device_ms"] \
+            if t["device_ms"] else None
+    return out
+
+
 def ssm_serving_path(cfg):
     """Phase 9: ``cfg`` (falcon-mamba-7b) whole behind ``serve.Engine``
-    (:func:`serve_whole`), the scan counter checked at one launch per layer
-    and prefill and the flash counters at none, and the scan kernel held to
-    its plain version on the first layer's inputs from the first live
-    prefill.  Returns the launches, that comparison's error and the run's
-    end-to-end numbers."""
+    (:func:`serve_whole`), the fused scan entry's and the conv kernel's
+    counters checked at one launch per layer and prefill and the first
+    scan entry's and the flash counters at none, and the fused entry held
+    to its plain version on the first layer's inputs from the first live
+    prefill (:func:`compare_fused`).  Returns the launches, that
+    comparison's excess in ulps and the run's end-to-end numbers."""
     capture = ScanCapture()
     model, eng, runner, sched_us, launches = serve_whole(
-        cfg, ms, "selective_scan", capture)
+        cfg, ms, "selective_scan_fused", capture)
     n_prefills = len(runner.prefill_s)
-    if launches["selective_scan"] != cfg.n_layers * n_prefills or \
+    per_layer = cfg.n_layers * n_prefills
+    if launches["selective_scan_fused"] != per_layer or \
+            launches["causal_conv_silu"] != per_layer or \
+            launches["selective_scan"] != 0 or \
             launches["flash_attention"] != 0 or \
             launches["flash_attention_bf16"] != 0:
         raise AssertionError(f"SSM serving path launches {launches} for "
                              f"{n_prefills} prefills of {cfg.n_layers} "
                              "mamba layers")
-    dt, x, b, c, a = capture.first
-    err, top, median = compare_scan(dt, x, b, c, a, relative=True)
-    print(f"selective_scan vs plain at the serving path's inputs (the first "
-          f"layer of the first prefill: dt {tuple(dt.shape)} {dt.dtype}, x "
-          f"{x.dtype}, b / c {tuple(b.shape)} {b.dtype}, a {tuple(a.shape)}):"
-          f" max abs err {err} (bound {SCAN_TOL} x max(1, {top})); median "
-          f"|output| {median}", flush=True)
+    live = compare_fused(*capture.first)
+    print(f"selective_scan_fused vs plain at the serving path's inputs (the "
+          f"first layer of the first prefill: x "
+          f"{tuple(capture.first[2].shape)} {capture.first[2].dtype}): "
+          f"{json.dumps(live)} (bound {SCAN_TOL} x max(1, max |out|) + 1 "
+          f"bf16 ulp)", flush=True)
     capture.first = None
     serving = serving_numbers(cfg, model, runner, sched_us,
                               "selective_scan_fwd", "scan")
-    serving["scan_vs_plain_main_path"] = {
-        "max_abs_err": err, "max_abs_output": top,
-        "median_abs_output": median}
-    return launches, err, serving
+    serving["fused_vs_plain_main_path"] = live
+    return launches, live["ulps_beyond_tol"], serving
 
 
 def scan_serving_inputs(seed: int, D: int = 2 * FALCON_MAMBA_7B.d_model):
@@ -1951,17 +2188,18 @@ def hybrid_path(base) -> dict:
     tokens = session_prompt("s0", cfg.vocab)
     prefill = make_prefill_step(cfg, impl="flash")
     fcap, scap = FlashCapture(cfg), ScanCapture()
-    fa.flash_attention, ms.selective_scan = fcap, scap
+    fa.flash_attention, ms.selective_scan_fused = fcap, scap
     for k in ALL_KERNELS:
         k.launches = 0
     try:
         logits = prefill(model, {"tokens": tokens})
     finally:
-        fa.flash_attention, ms.selective_scan = fcap.kernel, scap.kernel
+        fa.flash_attention, ms.selective_scan_fused = fcap.kernel, scap.kernel
     n_attn = attention_layers(cfg)
     want = {k.name: 0 for k in ALL_KERNELS}
     want.update(flash_attention_bf16=n_attn,
-                selective_scan=cfg.n_layers - n_attn)
+                selective_scan_fused=cfg.n_layers - n_attn,
+                causal_conv_silu=cfg.n_layers - n_attn)
     finite = bool(torch.isfinite(logits).all())
     cache = init_cache(cfg, 1, MAX_LEN)
     tok = tokens[:, -1:]
@@ -1988,11 +2226,8 @@ def hybrid_path(base) -> dict:
     fcap.seen.clear()
     scan = None
     if scap.first is not None:
-        dt, x, b, c, a = scap.first
-        err, top, median = compare_scan(dt, x, b, c, a, relative=True)
-        scan = {"dt": list(dt.shape), "max_abs_err": err,
-                "tolerance": SCAN_TOL * max(1.0, top),
-                "median_abs_output": median}
+        scan = {"x": list(scap.first[2].shape),
+                **compare_fused(*scap.first)}
         scap.first = None
     prefill_ms = []
     for _ in range(3):
@@ -2020,9 +2255,9 @@ def model_f32(base, n_layers: int, seed: int) -> dict:
     (:func:`full_width`, weights drawn from ``seed``), the logits at every
     position of an F32_PROMPT-token prefill (of F32_PROMPT seeded frames
     and as many target tokens, for the enc-dec family) through the kernels
-    (the float32 flash kernel on every attention call, the scan on mamba
-    layers) against the same model with both entries on their plain
-    versions, on the same card and weights, within SCAN_TOL x max(1, max
+    (the float32 flash kernel on every attention call, the conv kernel and
+    the scan's second entry on mamba layers) against the same model with
+    those entries on their plain versions, on the same card and weights, within SCAN_TOL x max(1, max
     |logit|), each kernel launched once per call of its kind and no other
     kernel.  Returns the numbers printed."""
     torch.cuda.reset_peak_memory_stats()
@@ -2043,19 +2278,23 @@ def model_f32(base, n_layers: int, seed: int) -> dict:
         k.launches = 0
     kern = logits()
     launches = {k.name: k.launches for k in ALL_KERNELS}
-    flash, scan = fa.flash_attention, ms.selective_scan
+    flash, fused, conv = (fa.flash_attention, ms.selective_scan_fused,
+                          ms.causal_conv_silu)
     fa.flash_attention = fa.flash_attention_ref
-    ms.selective_scan = functools.partial(scan, backend="ref")
+    ms.selective_scan_fused = functools.partial(fused, backend="ref")
+    ms.causal_conv_silu = functools.partial(conv, backend="ref")
     try:
         plain = logits()
     finally:
-        fa.flash_attention, ms.selective_scan = flash, scan
+        fa.flash_attention, ms.selective_scan_fused, ms.causal_conv_silu = \
+            flash, fused, conv
     torch.cuda.synchronize()
     err = max_abs_err(kern, plain)
     top = float(plain.abs().max())
     want = {k.name: 0 for k in ALL_KERNELS}
+    n_mamba = cfg.n_layers - attention_layers(cfg)
     want.update(flash_attention=flash_calls(cfg),
-                selective_scan=cfg.n_layers - attention_layers(cfg))
+                selective_scan_fused=n_mamba, causal_conv_silu=n_mamba)
     if not err <= SCAN_TOL * max(1.0, top) or launches != want:
         raise AssertionError(f"float32 {cfg.name}: kernels vs plain logits "
                              f"differ by {err} (bound {SCAN_TOL} x max(1, "
@@ -3414,6 +3653,16 @@ def main(argv=None) -> int:
           f"max abs err {long_err} (tolerance {long_tol}); the plain version "
           f"with the state reset at step {SCAN_CUT} moves y by {long_ratio} x "
           f"that tolerance (at least {SCAN_CARRY})", flush=True)
+    conv_checks = [conv_check(*case, seed=200 + i)
+                   for i, case in enumerate(CONV_CASES)]
+    print(f"causal_conv_silu vs plain: before SiLU bit for bit (bias + "
+          f"{CONV_SHIFT}), after it per case {json.dumps(conv_checks)}",
+          flush=True)
+    fused_checks = [compare_fused(*fused_inputs(*case, seed=300 + i))
+                    for i, case in enumerate(FUSED_CASES)]
+    print(f"selective_scan_fused vs plain (within {SCAN_TOL} x max(1, max "
+          f"|out|) + 1 bf16 ulp), per case (B, S, D, N, dtype, dt_rank) = "
+          f"{FUSED_CASES}: {json.dumps(fused_checks)}", flush=True)
 
     lap("3")
     # 4. the decision path at full size, held to the float64 twin
@@ -3569,7 +3818,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"whole model, float32: {s32['model']} with n_layers="
           f"{s32['layers']} (full width), S = {F32_PROMPT}; logits at every "
-          f"position via the scan kernel vs its plain version: "
+          f"position via the block's kernels vs their plain versions: "
           f"{json.dumps(s32)}", flush=True)
 
     lap("10")
@@ -3585,6 +3834,9 @@ def main(argv=None) -> int:
     scan_t["registers"] = ptxas["selective_scan"]
     print(f"time {tag}: selective_scan at {tuple(scan_t['shape'])} "
           f"({scan_t['types']}): {json.dumps(scan_t)}", flush=True)
+    block_t = time_block_kernels(seed=15)
+    print(f"time {tag}: the SSM block's conv kernel and fused scan entry: "
+          f"{json.dumps(block_t)}", flush=True)
     print(f"SSM serving end to end {tag}: {json.dumps(ssm_serving)}",
           flush=True)
 
@@ -3630,8 +3882,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"whole model, float32: {h32['model']} with n_layers="
           f"{h32['layers']} (full width), S = {F32_PROMPT}; logits at every "
-          f"position via the float32 flash and scan kernels vs their plain "
-          f"versions: {json.dumps(h32)}", flush=True)
+          f"position via the float32 flash and the SSM block's kernels vs "
+          f"their plain versions: {json.dumps(h32)}", flush=True)
     shape_t = {}
     for cfg_, seed in ((QWEN3_MOE_30B, 16), (JAMBA_15_LARGE, 17),
                        (ARCTIC_480B, 18)):
@@ -3813,9 +4065,7 @@ def main(argv=None) -> int:
                  "source": str(k.source.relative_to(ROOT)),
                  "replaces": REPLACES[k.name],
                  "launches": ssm_launches[k.name],
-                 "max_abs_err": max(scan_err, scan_live_err, *(
-                     h["scan_vs_plain"]["max_abs_err"]
-                     for h in hybrid.values() if h["scan_vs_plain"])),
+                 "max_abs_err": scan_err,
                  "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
                  "bound_ms": scan_t["bound_ms"],
                  "bound_by": scan_t["bound_by"], "library_ms": None,
@@ -3829,6 +4079,25 @@ def main(argv=None) -> int:
                  "d16384": {key: scan_wide[key] for key in (
                      "shape", "ms", "device_ms", "plain_ms", "bound_ms",
                      "bound_by")}})
+    for k, t, check in (
+            (ms.SELECTIVE_SCAN_FUSED_KERNEL,
+             block_t["selective_scan_fused"],
+             {"ulps_beyond_tol": max(scan_live_err, *(
+                 c["ulps_beyond_tol"] for c in fused_checks), *(
+                 h["scan_vs_plain"]["ulps_beyond_tol"]
+                 for h in hybrid.values() if h["scan_vs_plain"]))}),
+            (ms.CAUSAL_CONV_KERNEL, block_t["causal_conv_silu"],
+             {"ulps": max(c["ulps"] for c in conv_checks)})):
+        rows.append({"name": k.name, "route": "cuda",
+                     "source": str(k.source.relative_to(ROOT)),
+                     "replaces": None, "launches": ssm_launches[k.name],
+                     **check, **t, "library_ms": None,
+                     "full_width_launches": {
+                         name: h["launches"][k.name]
+                         for name, h in hybrid.items()},
+                     "float32_full_width_launches": h32["launches"][k.name],
+                     "ssm_training_launches":
+                         ssm_train["launches"][k.name]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

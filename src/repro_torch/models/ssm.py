@@ -1,12 +1,20 @@
 """Mamba-1 selective state-space block (the falcon-mamba substrate).
 
-Two scans compute the same recurrence, and the caller picks one
+Two paths compute the same block, and the caller picks one
 (``scan_impl``):
 
-* ``"kernel"`` (serving: prefill) — :func:`repro_torch.kernels.mamba_scan.
-  selective_scan`: the hand-written kernel on the card, its plain version on
-  the CPU.  It has no backward, and its function is float32;
-* ``"chunked"`` (training) — the reference's differentiable scan: an
+* ``"kernel"`` (serving: prefill) — the block through two hand-written
+  kernels on the card (their plain versions on the CPU), with the four
+  matrix products on ``torch.matmul`` around them:
+  :func:`repro_torch.kernels.mamba_scan.causal_conv_silu` (the conv, its
+  bias and SiLU, reading in_proj's output in place) and
+  :func:`repro_torch.kernels.mamba_scan.selective_scan_fused` (softplus,
+  the scan, the D skip, the ``silu(z)`` gate and the cast).  The plain
+  versions repeat the chunked path's elementwise chain operation for
+  operation.  They have no backward, the scan's function is float32, and
+  they take no DTensor;
+* ``"chunked"`` (training, the sharded step) — the reference's
+  differentiable scan: an
   associative scan over the whole sequence when ``chunk <= 0`` or
   ``chunk >= S``, else chunks of ``chunk`` steps (the sequence zero-padded
   to a multiple) with the ``[B, di, N]`` state carried across them and
@@ -14,9 +22,10 @@ Two scans compute the same recurrence, and the caller picks one
   The associative scan is the reference's ``jax.lax.associative_scan``
   recursion, step for step, so both combine in the same order.
 
-The D skip, the ``silu(z)`` gate, the cast to the model's dtype and
-``out_proj`` stay outside the scan, as in the reference.  Decode steps the
-recurrence once in plain PyTorch.
+On the chunked path the conv, the D skip, the ``silu(z)`` gate, the cast
+to the model's dtype and ``out_proj`` stay outside the scan, as in the
+reference.  Decode steps the recurrence once in plain PyTorch, its conv
+state carried.
 """
 from __future__ import annotations
 
@@ -153,8 +162,10 @@ def _in_proj(x, w):
 
 
 def _ssm_inputs(m: Mamba, x, spec: SSMSpec, conv_state=None):
-    """The projections both paths share: (xc, z, dt f32, b, c, a f32, new
-    conv state), as the reference builds them."""
+    """The chunked path's and the decode step's projections and elementwise
+    chain: (xc, z, dt f32, b, c, a f32, new conv state), as the reference
+    builds them.  The kernel path (:func:`_forward_kernels`) runs the same
+    chain inside its two kernels instead."""
     D = x.shape[-1]
     N = spec.d_state
     dtr = spec.resolved_dt_rank(D)
@@ -295,25 +306,38 @@ def scan_on_shards(xc, dt, b_ssm, c_ssm, a, **kw):
         device_mesh=mesh, redistribute_inputs=True)(xc, dt, b_ssm, c_ssm, a)
 
 
+def _forward_kernels(m: Mamba, x, spec: SSMSpec):
+    """The prefill through the block's two kernels: in_proj, the conv
+    kernel on its first half in place, x_proj, dt's product, the scan's
+    second entry (z, b and c read in place), out_proj."""
+    N = spec.d_state
+    dtr = spec.resolved_dt_rank(x.shape[-1])
+    xr, z = (x @ m.in_proj).chunk(2, dim=-1)
+    xc = ms.causal_conv_silu(xr, m.conv_w, m.conv_b)
+    dt_raw, b_ssm, c_ssm = (xc @ m.x_proj).split([dtr, N, N], dim=-1)
+    y = ms.selective_scan_fused(dt_raw @ m.dt_w, m.dt_b, xc, z, b_ssm, c_ssm,
+                                m.a_log, m.d_skip)
+    return y @ m.out_proj
+
+
 def mamba_forward(m: Mamba, x, spec: SSMSpec, *, scan_impl: str = "kernel",
                   chunk: int = 256, scan_dtype: str = "float32"):
     """x [B, S, D] -> [B, S, D] (prefill or train).  ``scan_impl`` picks
-    the scan (module docstring): ``"kernel"`` runs in float32 and refuses
-    another ``scan_dtype``; ``"chunked"`` takes ``chunk`` and
+    the path (module docstring): ``"kernel"`` runs the scan in float32 and
+    refuses another ``scan_dtype``; ``"chunked"`` takes ``chunk`` and
     ``scan_dtype`` as the reference does."""
-    xc, z, dt, b_ssm, c_ssm, a, _ = _ssm_inputs(m, x, spec)
     if scan_impl == "kernel":
         if scan_dtype != "float32":
             raise NotImplementedError(
                 f"ssm_scan_dtype={scan_dtype!r} on the scan kernel: its "
                 "function is float32; scan_impl='chunked' takes "
                 "bfloat16 intermediates")
-        y = ms.selective_scan(dt, xc, b_ssm, c_ssm, a)  # [B, S, di] f32
-    elif scan_impl == "chunked":
-        y = scan_on_shards(xc, dt, b_ssm, c_ssm, a, chunk=chunk,
-                           scan_dtype=scan_dtype)
-    else:
+        return _forward_kernels(m, x, spec)
+    if scan_impl != "chunked":
         raise ValueError(f"unknown scan impl {scan_impl!r}")
+    xc, z, dt, b_ssm, c_ssm, a, _ = _ssm_inputs(m, x, spec)
+    y = scan_on_shards(xc, dt, b_ssm, c_ssm, a, chunk=chunk,
+                       scan_dtype=scan_dtype)
     y = y + m.d_skip * xc.float()
     # cast before out_proj: bf16 partial-sum all-reduces are half the traffic
     y = (y * F.silu(z.float())).to(x.dtype)

@@ -4,12 +4,19 @@ through the kernels against the same path through the plain versions on
 the CPU, the flash-attention kernels against their plain version (float32
 within ``tests/test_kernels.py``'s 2e-5, bf16 within the bound of the
 kernel's roundings, ``chip_smoke.FLASH_TOL``), and the selective-scan
-kernel against its plain version within that file's 1e-4, short traces
+kernel against its plain version within that file's 1e-4, the SSM
+block's conv kernel against its plain version (bit for bit before its
+SiLU, within one ulp after it) and the scan's second entry within 1e-4 of
+max(1, max |out|) plus one bf16 ulp, a reduced falcon-mamba prefill through
+both (one launch of each a layer, logits as the CPU's), short traces
 through ``TraceWorkload`` on ``ClusterSim`` (the trace path and the
 predictive trace) against the same traces on the plain versions, and a
 MoE layer on the card against the CPU.  Every test here needs an NVIDIA GPU and skips without
 one; the module imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch built for CUDA."""
+import dataclasses
+import functools
+import math
 import os
 
 import pytest
@@ -273,3 +280,103 @@ def test_selective_scan_each_states_per_thread_instance_on_the_card(card, N):
     assert chip_smoke.compare_scan(dt, x, b, c, a)[0] <= chip_smoke.SCAN_TOL
     x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
     assert chip_smoke.compare_scan(dt, x, b, c, a)[0] <= chip_smoke.SCAN_TOL
+
+
+@pytest.mark.parametrize("case", chip_smoke.CONV_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_causal_conv_equals_its_plain_version_on_the_card(card, case):
+    """The serving shape, jamba's d_inner, prompts of 1, 2, 3 and 198
+    tokens, a ragged d_inner, float32: the kernel's sum, bias and cast
+    equal the block's plain conv bit for bit (SiLU the identity under a
+    shifted bias), and its output is within one ulp of the plain version's;
+    each call one launch."""
+    before = ms.CAUSAL_CONV_KERNEL.launches
+    out = chip_smoke.conv_check(*case, seed=sum(case[:3]))
+    assert out["ulps"] <= 1
+    assert ms.CAUSAL_CONV_KERNEL.launches == before + 2
+
+
+@pytest.mark.parametrize("case", chip_smoke.FUSED_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_fused_scan_equals_its_plain_version_on_the_card(card, case):
+    """The serving shape and types, jamba's d_inner, ragged S and D, every
+    N, float32, B and C read in place and copied: within SCAN_TOL x max(1,
+    max |out|) plus one bf16 ulp; one launch of the second entry and none
+    of the first."""
+    ins = chip_smoke.fused_inputs(*case, seed=sum(case[:4]))
+    before = [k.launches for k in ms.KERNELS]
+    out = chip_smoke.compare_fused(*ins)
+    assert out["ulps_beyond_tol"] <= 1
+    assert [k.launches for k in ms.KERNELS] == [
+        before[0], before[1] + 1, before[2]]
+
+
+def test_fused_scan_reads_falcons_b_and_c_in_place_on_the_card(card):
+    """x_proj's output at falcon-mamba-7b's widths (rows of 288 bf16, B and
+    C at 512 and 544 bytes) is read in place; a view whose start is off 16
+    bytes, and bf16 rows of N = 4, are copied first, and give the same
+    result as the same values made contiguous."""
+    falcon = chip_smoke.fused_inputs(1, 300, 256, 16, "bfloat16", 256, 7)
+    assert ms.kernel.bc_in_place(falcon[4], falcon[5])
+    for case in ((2, 129, 64, 8, "bfloat16", 5),
+                 (1, 257, 96, 4, "bfloat16", 8)):
+        ins = chip_smoke.fused_inputs(*case, seed=8)
+        assert not ms.kernel.bc_in_place(ins[4], ins[5])
+        contiguous = (*ins[:4], ins[4].contiguous(), ins[5].contiguous(),
+                      *ins[6:])
+        assert torch.equal(ms.selective_scan_fused(*ins),
+                           ms.selective_scan_fused(*contiguous))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("widths", ["reduced", "falcon_state"])
+def test_a_reduced_falcon_prefill_runs_the_block_kernels_on_the_card(
+        card, widths, dtype):
+    """Reduced falcon-mamba-7b (two mamba layers; ``falcon_state``: N = 16
+    and dt_rank d_model / 16, as the full model, so B and C are read in
+    place in both types) prefilled on the card: one launch of the conv
+    kernel and of the scan's second entry a layer, none of the first scan
+    entry.  The last-position logits against the same model on the card
+    with both entries on their plain versions: within SCAN_TOL x max(1,
+    max |logit|) in float32, within one bfloat16 ulp of max |logit| in
+    bfloat16; in float32 also within SCAN_TOL x max(1, max |logit|) of
+    the same weights' plain path on the CPU."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_model
+    from repro_torch.train.step import make_prefill_step
+
+    cfg = dataclasses.replace(ARCHS["falcon-mamba-7b"].reduced(), dtype=dtype)
+    if widths == "falcon_state":
+        cfg = dataclasses.replace(cfg, d_model=256, ssm=dataclasses.replace(
+            cfg.ssm, d_state=16, dt_rank=None))
+    model = init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (1, 300),
+                           generator=torch.Generator().manual_seed(2))
+    want = make_prefill_step(cfg)(model, {"tokens": tokens})
+    model = model.to("cuda")
+    before = [k.launches for k in ms.KERNELS]
+    got = make_prefill_step(cfg)(model, {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    n = sum(layer.kind == "mamba" for layer in model.layers)
+    assert n == cfg.n_layers == 2
+    assert [k.launches for k in ms.KERNELS] == [
+        before[0], before[1] + n, before[2] + n]
+    assert bool(torch.isfinite(got).all())
+    fused, conv = ms.selective_scan_fused, ms.causal_conv_silu
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ms, "selective_scan_fused",
+                   functools.partial(fused, backend="ref"))
+        mp.setattr(ms, "causal_conv_silu",
+                   functools.partial(conv, backend="ref"))
+        plain = make_prefill_step(cfg)(model, {"tokens": tokens.cuda()})
+    assert [k.launches for k in ms.KERNELS] == [
+        before[0], before[1] + n, before[2] + n]
+    top = float(plain.abs().max())
+    err = float((got - plain).abs().max())
+    if dtype == "float32":
+        assert err <= chip_smoke.SCAN_TOL * max(1.0, top)
+        top = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= \
+            chip_smoke.SCAN_TOL * max(1.0, top)
+    else:
+        assert err <= 2.0 ** (math.floor(math.log2(top)) - 7)

@@ -146,7 +146,9 @@ def test_the_routes(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         ms_ops.selective_scan(*meta)
     assert calls == []
-    assert ms.KERNELS == (ms.SELECTIVE_SCAN_KERNEL,)
+    assert ms.KERNELS == (ms.SELECTIVE_SCAN_KERNEL,
+                          ms.SELECTIVE_SCAN_FUSED_KERNEL,
+                          ms.CAUSAL_CONV_KERNEL)
 
 
 def test_the_kernel_tiling_mirrors_the_cuda_source_and_the_card_cases_cover_it():
@@ -224,3 +226,214 @@ def test_every_probe_variant_applies_to_the_kernel_source():
     for name in sv.VARIANTS:
         text = sv.variant_text(name)
         assert (text == src) == (not sv.VARIANTS[name])
+
+
+# --------------------------------------------------------------------------- #
+# the block's two further entries: the conv kernel and the scan's second
+# entry, their plain versions against the block's plain chain
+# --------------------------------------------------------------------------- #
+
+
+def _block_inputs(seed, B, S, D, N, dtype, dtr=3):
+    """The fused entry's inputs as the block makes them: z the second half
+    of an in_proj-shaped [B, S, 2D] product, b and c slices of an
+    x_proj-shaped [B, S, dtr + 2N] one (views, read in place); dt_proj
+    large enough at a few places that dt_proj + dt_b passes softplus's
+    threshold of 20."""
+    g = torch.Generator().manual_seed(seed)
+    xz = torch.randn((B, S, 2 * D), generator=g).to(dtype)
+    proj = torch.randn((B, S, dtr + 2 * N), generator=g).to(dtype)
+    dt_proj = torch.randn((B, S, D), generator=g)
+    dt_proj[:, ::3, ::2] += 25.0
+    dt_b = 0.1 * torch.randn((D,), generator=g)
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32)).repeat(
+        D, 1) + 0.1 * torch.randn((D, N), generator=g)
+    d_skip = 1.0 + 0.1 * torch.randn((D,), generator=g)
+    x = torch.nn.functional.silu(xz[..., :D].float()).to(dtype)
+    _, b, c = proj.split([dtr, N, N], dim=-1)
+    return (dt_proj.to(dtype), dt_b.to(dtype), x, xz[..., D:], b, c, a_log,
+            d_skip)
+
+
+def _chain(dt_proj, dt_b, x, z, b, c, a_log, d_skip):
+    """The block's plain chain around the first scan entry."""
+    F = torch.nn.functional
+    dt = F.softplus(dt_proj.float() + dt_b.float())
+    y = selective_scan(dt, x, b, c, -torch.exp(a_log))
+    y = y + d_skip * x.float()
+    return (y * F.silu(z.float())).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S", [1, 3, 40])
+def test_the_conv_plain_version_equals_the_blocks_chain(S, dtype):
+    """On a view of a [B, S, 2 di] product (rows of 2 di): bit for bit the
+    block's ``causal_conv`` then SiLU in float32 and the cast, also where
+    S is shorter than the conv's width."""
+    from repro_torch.models.ssm import causal_conv
+
+    g = torch.Generator().manual_seed(S)
+    xz = torch.randn((2, S, 2 * 24), generator=g).to(dtype)
+    w = torch.randn((24, 4), generator=g).to(dtype)
+    b = torch.randn((24,), generator=g).to(dtype)
+    xr = xz[..., :24]
+    want = torch.nn.functional.silu(
+        causal_conv(xr, w, b)[0].float()).to(dtype)
+    got = ms.causal_conv_silu(xr, w, b)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, want)
+    assert torch.equal(ms.causal_conv_silu(xr, w, b, backend="ref"), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,D,N", [(1, 40, 24, 4), (2, 70, 16, 16)])
+def test_the_fused_scan_plain_version_equals_the_blocks_chain(B, S, D, N,
+                                                              dtype):
+    """softplus (past its threshold too) -> the scan -> D skip -> gate ->
+    cast, on the block's views: bit for bit."""
+    ins = _block_inputs(B + S + N, B, S, D, N, dtype)
+    assert float((ins[0].float() + ins[1].float()).max()) > 20.0
+    got = ms.selective_scan_fused(*ins)
+    assert got.dtype == dtype and got.shape == (B, S, D)
+    assert torch.equal(got, _chain(*ins))
+    assert torch.equal(ms.selective_scan_fused(*ins, backend="ref"), got)
+    # and the plain version agrees with the first entry's oracle on the
+    # widened inputs, the reference's scan
+    dt_proj, dt_b, x, z, b, c, a_log, d_skip = ins
+    dt = torch.nn.functional.softplus(dt_proj.float() + dt_b.float())
+    y = jax_scan_ref(*(jnp.asarray(t.float().numpy()) for t in (
+        dt, x, b, c, -torch.exp(a_log))))
+    want = (torch.from_numpy(np.array(y)) + d_skip * x.float()) * \
+        torch.nn.functional.silu(z.float())
+    assert float((got.float() - want.to(dtype).float()).abs().max()) <= \
+        TOL * max(1.0, float(want.abs().max())) + (
+            0.0 if dtype == torch.float32
+            else 2.0 ** -8 * float(want.abs().max()))
+
+
+def _conv_small(dtype=torch.float32):
+    g = torch.Generator().manual_seed(0)
+    return (torch.randn((1, 6, 8), generator=g).to(dtype),
+            torch.randn((8, 4), generator=g).to(dtype),
+            torch.randn((8,), generator=g).to(dtype))
+
+
+def test_the_block_entries_refuse_autograd_and_other_types():
+    conv, fused = _conv_small(), _block_inputs(0, 1, 8, 8, 4, torch.float32)
+    with pytest.raises(RuntimeError, match="causal_conv_silu is forward-only"):
+        ms.causal_conv_silu(conv[0].requires_grad_(), *conv[1:])
+    with pytest.raises(RuntimeError,
+                       match="selective_scan_fused is forward-only"):
+        ms.selective_scan_fused(*fused[:6],
+                                fused[6].clone().requires_grad_(), fused[7])
+    x, w, b = _conv_small()
+    with pytest.raises(TypeError, match="x must be float32 or bfloat16"):
+        ms.causal_conv_silu(x.half(), w.half(), b.half())
+    with pytest.raises(TypeError, match="w must be torch.float32 like x"):
+        ms.causal_conv_silu(x, w.to(torch.bfloat16), b)
+    for kw in (3, 5):
+        with pytest.raises(ValueError, match=f"conv width kw = {kw}"):
+            ms.causal_conv_silu(x, torch.zeros((8, kw)), b)
+    with pytest.raises(ValueError, match=r"must be \[D, kw\] and \[D\]"):
+        ms.causal_conv_silu(x, w[:4], b)
+    dt_proj, dt_b, x, z, b, c, a_log, d_skip = fused
+    with pytest.raises(TypeError, match="z must be torch.float32 like x"):
+        ms.selective_scan_fused(dt_proj, dt_b, x, z.to(torch.bfloat16), b, c,
+                                a_log, d_skip)
+    with pytest.raises(TypeError, match="d_skip must be float32"):
+        ms.selective_scan_fused(dt_proj, dt_b, x, z, b, c, a_log,
+                                d_skip.double())
+    with pytest.raises(TypeError, match="x must be float32 or bfloat16"):
+        ms.selective_scan_fused(*(t.half() for t in fused[:6]), a_log,
+                                d_skip)
+    with pytest.raises(ValueError, match=r"b \(1, 8, 2\) must be"):
+        ms.selective_scan_fused(dt_proj, dt_b, x, z, b[..., :2], c, a_log,
+                                d_skip)
+    with pytest.raises(ValueError, match="state size N = 3"):
+        ms.selective_scan_fused(dt_proj, dt_b, x, z, b[..., :3], c[..., :3],
+                                a_log[:, :3], d_skip)
+    with pytest.raises(ValueError, match="unknown backend"):
+        ms.causal_conv_silu(*_conv_small(), backend="triton")
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A device mesh over a fake process group of two ranks, this process
+    rank 0: enough to make DTensors, with no communication."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        yield init_device_mesh("cpu", (2,))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_the_block_entries_refuse_dtensors(one_rank_mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def dtensor(t):
+        return DTensor.from_local(t, one_rank_mesh, [Replicate()])
+
+    x, w, b = _conv_small()
+    with pytest.raises(TypeError, match="causal_conv_silu takes plain "
+                                        "tensors, not DTensors"):
+        ms.causal_conv_silu(dtensor(x), w, b)
+    fused = list(_block_inputs(0, 1, 8, 8, 4, torch.float32))
+    fused[3] = dtensor(fused[3].contiguous())
+    with pytest.raises(TypeError, match="selective_scan_fused takes plain "
+                                        "tensors, not DTensors"):
+        ms.selective_scan_fused(*fused)
+
+
+def test_the_block_entries_routes(monkeypatch):
+    """CPU tensors reach the plain versions and never the kernels; the
+    kernel wrappers refuse host tensors without counting a launch; a tensor
+    on another device reaches neither."""
+    calls = []
+    for name in ("causal_conv_silu_kernel", "selective_scan_fused_kernel"):
+        monkeypatch.setattr(ms_ops, name,
+                            lambda *a, name=name: calls.append(name))
+    conv, fused = _conv_small(), _block_inputs(0, 1, 8, 8, 4, torch.float32)
+    assert ms_ops.causal_conv_silu(*conv).shape == (1, 6, 8)
+    assert ms_ops.selective_scan_fused(*fused).shape == (1, 8, 8)
+    assert calls == []
+    before = [k.launches for k in ms.KERNELS]
+    with pytest.raises(ValueError, match="x must be a CUDA tensor"):
+        ms_kernel.causal_conv_silu_kernel(*conv)
+    with pytest.raises(ValueError, match="dt_proj must be a CUDA tensor"):
+        ms_kernel.selective_scan_fused_kernel(*fused)
+    assert [k.launches for k in ms.KERNELS] == before
+    for name in ("causal_conv_silu_ref", "selective_scan_fused_ref"):
+        monkeypatch.setattr(ms_ops, name,
+                            lambda *a, name=name: calls.append(name))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ms_ops.causal_conv_silu(*(t.to("meta") for t in conv))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ms_ops.selective_scan_fused(*(t.to("meta") for t in fused))
+    assert calls == []
+
+
+def test_each_scan_entry_has_a_library_of_its_own():
+    """The one source is built twice: the default build holds the first
+    entry, a build with SCAN_FUSED_ENTRY the second, so no two libraries
+    hold the same kernel instances; the source guards each entry so.  The
+    conv kernel's taps are built without FMA contraction."""
+    from pathlib import Path
+
+    from repro_torch.kernels.build import EXACT_FLAGS
+
+    first, fused = ms.SELECTIVE_SCAN_KERNEL, ms.SELECTIVE_SCAN_FUSED_KERNEL
+    assert fused.source == first.source and fused.entry != first.entry
+    assert fused.flags == first.flags + ("-DSCAN_FUSED_ENTRY",)
+    assert fused.library_path() != first.library_path()
+    src = Path(first.source).read_text()
+    guard, other, end = (src.index(t) for t in (
+        "#ifndef SCAN_FUSED_ENTRY", "#else", "#endif  // SCAN_FUSED_ENTRY"))
+    assert guard < src.index(f'extern "C" int {first.entry}(') < other
+    assert other < src.index(f'extern "C" int {fused.entry}(') < end
+    assert ms.CAUSAL_CONV_KERNEL.flags == EXACT_FLAGS

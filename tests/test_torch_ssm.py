@@ -155,20 +155,87 @@ def test_mamba_block_decode_steps_equal_the_reference():
         assert close(sj[0], st[0]) < TOL and close(sj[1], st[1]) < TOL
 
 
-def test_the_block_goes_through_the_scan_wrapper(monkeypatch):
-    jcfg, tcfg, params, model = pair()
-    calls = []
-    scan = ms.selective_scan
+def _spy(monkeypatch, name):
+    """Record the tensors of every call of ``ms.<name>`` (then make it)."""
+    calls, entry = [], getattr(ms, name)
 
     def spy(*args, **kw):
-        calls.append(tuple(t.shape for t in args))
-        return scan(*args, **kw)
+        calls.append(args)
+        return entry(*args, **kw)
 
-    monkeypatch.setattr(ms, "selective_scan", spy)
+    monkeypatch.setattr(ms, name, spy)
+    return calls
+
+
+def test_the_block_goes_through_the_scan_wrapper(monkeypatch):
+    """The kernel path: one call of the scan's second entry and one of the
+    conv kernel's wrapper a layer, with in_proj's halves and x_proj's B and
+    C as views of the products (read in place), and none of the first
+    scan entry."""
+    jcfg, tcfg, params, model = pair()
+    fused = _spy(monkeypatch, "selective_scan_fused")
+    conv = _spy(monkeypatch, "causal_conv_silu")
+    first = _spy(monkeypatch, "selective_scan")
     x = torch.zeros((1, 5, tcfg.d_model))
     port_ssm.mamba_forward(model.layers[0].ssm, x, tcfg.ssm)
     di, N = 2 * tcfg.d_model, tcfg.ssm.d_state
-    assert calls == [((1, 5, di), (1, 5, di), (1, 5, N), (1, 5, N), (di, N))]
+    dtr = tcfg.ssm.resolved_dt_rank(tcfg.d_model)
+    assert [tuple(t.shape) for t in fused[0]] == [
+        (1, 5, di), (di,), (1, 5, di), (1, 5, di), (1, 5, N), (1, 5, N),
+        (di, N), (di,)]
+    assert len(fused) == 1 and first == []
+    dt_proj, _, xc, z, b, c, _, _ = fused[0]
+    assert z.stride(1) == 2 * di and b.stride(1) == c.stride(1) == dtr + 2 * N
+    assert c.data_ptr() - b.data_ptr() == N * b.element_size()
+    assert dt_proj.is_contiguous() and xc.is_contiguous()
+    assert len(conv) == 1
+    xr, w, bias = conv[0]
+    assert tuple(xr.shape) == (1, 5, di) and xr.stride(1) == 2 * di
+    assert tuple(w.shape) == (di, tcfg.ssm.conv_dim) and w.dtype == xr.dtype
+    assert tuple(bias.shape) == (di,)
+    assert xr.data_ptr() + di * xr.element_size() == z.data_ptr()
+
+
+def test_the_chunked_path_never_calls_the_kernel_entries(monkeypatch):
+    """The differentiable path (training, the sharded step) and the decode
+    step keep their plain chain: neither reaches the block's kernels."""
+    jcfg, tcfg, params, model = pair()
+    spied = [_spy(monkeypatch, name) for name in (
+        "selective_scan_fused", "causal_conv_silu", "selective_scan")]
+    x = torch.zeros((1, 5, tcfg.d_model))
+    port_ssm.mamba_forward(model.layers[0].ssm, x, tcfg.ssm,
+                           scan_impl="chunked", chunk=0)
+    state = port_ssm.init_mamba_state(1, tcfg.d_model, tcfg.ssm,
+                                      torch.float32, "cpu")
+    port_ssm.mamba_decode_step(model.layers[0].ssm, x[:, :1], state,
+                               tcfg.ssm)
+    assert spied == [[], [], []]
+
+
+def _block_chain(m, x, spec):
+    """The block as the kernel path ran it before its kernels: the shared
+    projections and conv (``_ssm_inputs``), the first scan entry, the D
+    skip, the gate, the cast and out_proj."""
+    xc, z, dt, b, c, a, _ = port_ssm._ssm_inputs(m, x, spec)
+    y = ms.selective_scan(dt, xc, b, c, a)
+    y = y + m.d_skip * xc.float()
+    return port_ssm.project((y * torch.nn.functional.silu(z.float()))
+                            .to(x.dtype), m.out_proj)
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["f32", "bf16"])
+def test_the_kernel_path_gives_the_plain_chains_numbers_on_the_cpu(dtype):
+    """On the CPU the kernel path runs the two kernels' plain versions,
+    which repeat the chain operation for operation: bit for bit the
+    block's output through the first scan entry and the elementwise chain
+    around it."""
+    jcfg, tcfg, params, model = pair(dtype=dtype)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 40, tcfg.d_model), dtype=np.float32)).to(
+        model.layers[0].ssm.in_proj.dtype)
+    m = model.layers[1].ssm
+    assert torch.equal(port_ssm.mamba_forward(m, x, tcfg.ssm),
+                       _block_chain(m, x, tcfg.ssm))
 
 
 def test_a_bfloat16_scan_is_not_ported():

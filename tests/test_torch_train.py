@@ -471,7 +471,9 @@ def test_a_train_step_never_reaches_a_kernel_entry(monkeypatch):
         raise AssertionError("a train step called a kernel entry")
 
     monkeypatch.setattr(fa, "flash_attention", boom)
-    monkeypatch.setattr(ms, "selective_scan", boom)
+    for name in ("selective_scan", "selective_scan_fused",
+                 "causal_conv_silu"):
+        monkeypatch.setattr(ms, name, boom)
     ocfg = adamw.AdamWConfig()
     runs = {}
     for arch in ("gemma3-4b", "jamba-1.5-large-398b"):

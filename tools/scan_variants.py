@@ -15,6 +15,12 @@ its registers and spills, the largest error against the plain version on
 (relative to max(1, max |y|) for the last two), and its CUDA-event and
 profiler device ms at the serving shape (1, 4096, 8192, 16), dt float32 and
 x / b / c bf16.  The card's name and power limit come first.
+
+Variants named ``fused*`` measure the second entry (the scan with the
+block's softplus, D skip, gate and cast) instead: its largest error
+against its plain version on ``chip_smoke.FUSED_CASES`` and at the serving
+shape (relative to max(1, max |out|)), and its times at the serving shape
+in bf16 with falcon-mamba-7b's views (z, B and C read in place).
 """
 from __future__ import annotations
 
@@ -37,6 +43,11 @@ def _k16(k: int):
                  "kMaxStatesPerThread ? N : kMaxStatesPerThread);")]
 
 
+_SOFTPLUS = ("return v > 20.f ? v : log1pf(expf(v));",
+             "return v > 20.f ? v : __logf(1.f + __expf(v));")
+_SILU = ("return v / (1.f + expf(-v));",
+         "return __fdividef(v, 1.f + __expf(-v));")
+
 #: name -> substitutions (old, new) applied to the kernel's source
 VARIANTS = {
     "kernel": [],
@@ -58,14 +69,29 @@ VARIANTS = {
                 "const float abar = dx.x * a2[k];")],
     "no_shuffles": [("ReduceScatter<L / 2, kU, Sh::kWarpCh>::run(p, j);", "")],
     "no_dt_x_widening_after_first_chunk": [
-        ("    widen_dx<Sh::kThreads>(s_dx, st,",
-         "    if (ci == 0) widen_dx<Sh::kThreads>(s_dx, st,")],
+        ("    widen_dx<Sh::kThreads, kFused>(s_dx, st,",
+         "    if (ci == 0) widen_dx<Sh::kThreads, kFused>(s_dx, st,")],
     "no_loads_after_first_chunk": [
         ("    if (cn < n_chunks)\n", "    if (cn < n_chunks && ci < 0)\n")],
     "no_steps": [("    float prev[kU];\n    steps(0, prev);",
                   "    float prev[kU] = {};"),
                  ("      steps(g, p);\n",
                   "      for (float& v : p) v = 0.f;\n")],
+    # the second entry: its extra work through the MUFU's fast forms (less
+    # accurate, so never the kernel's), or taken out
+    "fused": [],
+    "fused_fast_softplus": [_SOFTPLUS],
+    "fused_fast_silu": [_SILU],
+    "fused_fast_both": [_SOFTPLUS, _SILU],
+    "fused_no_softplus": [(
+        "d = make_float2(softplus(d.x + bias.x), softplus(d.y + bias.y));",
+        "d = make_float2(d.x + bias.x, d.y + bias.y);")],
+    "fused_no_gate": [("        if constexpr (kFused) v = gate(v, tt);\n",
+                       "")],
+    "fused_no_z": [("      if (es_x == 2)\n        stage_rows<T, 2>(s_z, fu.z, ",
+                    "      if (false)\n        stage_rows<T, 2>(s_z, fu.z, "),
+                   ("      else stage_rows<T, 4>(s_z, fu.z, ",
+                    "      else if (false) stage_rows<T, 4>(s_z, fu.z, ")],
 }
 
 
@@ -88,7 +114,8 @@ def worker(name: str) -> dict:
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels.build import CudaKernel, build_all
 
-    k0 = ms.SELECTIVE_SCAN_KERNEL
+    k0 = ms.SELECTIVE_SCAN_FUSED_KERNEL if name.startswith("fused") \
+        else ms.SELECTIVE_SCAN_KERNEL
     WORK.mkdir(parents=True, exist_ok=True)
     source = WORK / f"selective_scan_{name}.cu"
     source.write_text(variant_text(name))
@@ -97,6 +124,8 @@ def worker(name: str) -> dict:
     k.library_path().unlink(missing_ok=True)
     out = {"variant": name, "build_s": build_all([k]),
            **cs.ptxas_summary(k.build_log)}
+    if name.startswith("fused"):
+        return {**out, **fused_worker(k)}
 
     def err(ins, relative=False):
         _, y = cs.scan_entry(k, *ins)
@@ -111,6 +140,30 @@ def worker(name: str) -> dict:
     ins = cs.scan_serving_inputs(14)
     out["serving_rel_err"] = err(ins, True)
     call, _ = cs.scan_entry(k, *ins)
+    out["ms"] = cs.cuda_ms(call, iters=30, warmup=5)
+    out["device_ms"] = cs.device_ms(call, iters=20)
+    return out
+
+
+def fused_worker(k) -> dict:
+    """The second entry of variant library ``k``: errors and times."""
+    import chip_smoke as cs
+    from repro_torch.kernels import mamba_scan as ms
+
+    def err(ins):
+        _, got = cs.fused_entry(k, *ins)
+        want = ms.selective_scan_fused_ref(*ins)
+        return cs.max_abs_err(got, want) / max(1.0, float(want.abs().max()))
+
+    out = {"cases_max_rel_err": max(
+        err(cs.fused_inputs(*case, seed=100 + i))
+        for i, case in enumerate(cs.FUSED_CASES) if case[1] * case[2] < 1e6)}
+    falcon = cs.FALCON_MAMBA_7B
+    ins = cs.fused_inputs(1, cs.PROMPT, 2 * falcon.d_model,
+                          falcon.ssm.d_state, "bfloat16",
+                          falcon.ssm.resolved_dt_rank(falcon.d_model), 14)
+    out["serving_rel_err"] = err(ins)
+    call, _ = cs.fused_entry(k, *ins)
     out["ms"] = cs.cuda_ms(call, iters=30, warmup=5)
     out["device_ms"] = cs.device_ms(call, iters=20)
     return out
