@@ -16,6 +16,10 @@ class MoESpec:
     dense_residual: bool = False  # arctic: dense FFN in parallel with the MoE
     capacity_factor: float = 1.25
     group_size: int = 512  # GShard-style dispatch group length (tokens)
+    # gshard: groups with a capacity (above), the top-k weights divided by
+    # their sum; dropless: every choice served through per-expert row
+    # blocks, weighted by the softmax as it is (jamba as published)
+    dispatch: str = "gshard"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +28,7 @@ class SSMSpec:
     conv_dim: int = 4
     expand: int = 2
     dt_rank: Optional[int] = None  # default d_model // 16
+    inner_norm: bool = False  # jamba: weighted RMS norms on dt, B and C
 
     def resolved_dt_rank(self, d_model: int) -> int:
         return self.dt_rank if self.dt_rank is not None else max(1, d_model // 16)
@@ -46,6 +51,8 @@ class ModelConfig:
     sliding_window: Optional[int] = None  # local-attention window
     local_global_period: Optional[Tuple[int, int]] = None  # (n_local, period)
     attn_every: Optional[int] = None  # hybrid: 1 attn layer per `attn_every` layers
+    attn_offset: int = 0  # hybrid: period position of the attention layer
+    pos_emb: str = "rope"  # rope | none (jamba: no positional encoding)
     moe: Optional[MoESpec] = None
     ssm: Optional[SSMSpec] = None
     enc_layers: int = 0  # encoder-decoder: encoder depth (n_layers = decoder depth)
@@ -102,8 +109,8 @@ class ModelConfig:
         """Kind of sub-layer at position ``p`` of a period: attn|local|mamba."""
         if self.family == "ssm":
             return "mamba"
-        if self.attn_every is not None:  # hybrid: attention first, then mamba
-            return "attn" if p == 0 else "mamba"
+        if self.attn_every is not None:  # hybrid: attention at attn_offset
+            return "attn" if p == self.attn_offset else "mamba"
         if self.local_global_period is not None:
             n_local, _ = self.local_global_period
             return "local" if p < n_local else "attn"
@@ -218,6 +225,7 @@ def param_counts(cfg: ModelConfig) -> Tuple[int, int]:
             + di * s.d_state  # A_log
             + di  # D skip
             + di * D  # out_proj
+            + ((dtr + 2 * s.d_state) if s.inner_norm else 0)  # dt, B, C norms
         )
 
     total = 0

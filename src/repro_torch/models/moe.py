@@ -1,11 +1,14 @@
-"""Mixture-of-Experts FFN — GShard-style grouped top-k dispatch.
+"""Mixture-of-Experts FFN: a GShard-style grouped top-k dispatch (the
+default, ``MoESpec.dispatch == "gshard"``) or a dropless one
+(``"dropless"``, :func:`dropless_ffn`).
 
-Tokens are reshaped into groups of ``group_size``; routing builds per-group
-one-hot dispatch / combine tensors ``[G, n, E, C]`` with per-expert capacity
-``C`` (:func:`_capacity`), and the expert FFN runs as batched einsums over
-the expert axis, as the reference's ``repro/models/moe.py`` computes it.  No
-TPU kernel carries this path: the reference's products are plain einsums
-outside any Pallas kernel, and so are the port's.
+GShard: tokens are reshaped into groups of ``group_size``; routing builds
+per-group one-hot dispatch / combine tensors ``[G, n, E, C]`` with
+per-expert capacity ``C`` (:func:`_capacity`), and the expert FFN runs as
+batched einsums over the expert axis, as the reference's
+``repro/models/moe.py`` computes it.  No TPU kernel carries this path: the
+reference's products are plain einsums outside any Pallas kernel, and so
+are the port's.
 
 Two points where PyTorch and JAX differ, and how the port holds the
 reference's answer:
@@ -15,6 +18,16 @@ reference's answer:
   top-k comes from a stable descending sort;
 * ``jax.nn.gelu`` defaults to the tanh form, so the gelu experts use
   ``F.gelu(approximate="tanh")``.
+
+Dropless (Jamba as published; no reference in the JAX package): a float32
+router's softmax over every expert, the top-k by the same stable sort,
+weighted by the softmax as it is (not divided by their sum); the k choices of every token sorted by expert, each
+expert's SwiGLU run over its contiguous block of rows, and the results
+weighted and summed back per token in float32.  Nothing is dropped.  On
+the card, in bfloat16, the expert products are grouped calls
+(``torch._grouped_mm``) whose block ends stay on the device, so the layer
+waits on nothing; elsewhere a plain loop over the experts computes the
+same products, one expert's rows at a time.
 """
 from __future__ import annotations
 
@@ -23,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoESpec
-from repro_torch.sharding.ctx import shard, unflatten
+from repro_torch.sharding.ctx import is_dtensor, shard, unflatten
 
 from .layers import normal_param
 
@@ -60,7 +73,13 @@ def _top_k(probs: torch.Tensor, k: int):
 
 
 def moe_ffn(moe: MoE, x, spec: MoESpec, mlp_type: str):
-    """x [B, S, D] -> [B, S, D].  Capacity-dropped top-k routing."""
+    """x [B, S, D] -> [B, S, D]: capacity-dropped top-k routing, or
+    :func:`dropless_ffn` under ``spec.dispatch == "dropless"``."""
+    if spec.dispatch == "dropless":
+        return dropless_ffn(moe, x, spec, mlp_type)
+    if spec.dispatch != "gshard":
+        raise ValueError(f"unknown MoE dispatch {spec.dispatch!r}: gshard "
+                         "or dropless")
     B, S, D = x.shape
     N = B * S
     g = min(spec.group_size, N)
@@ -201,3 +220,74 @@ def experts_on_shards(dispatch, combine, xg, *weights, mlp_type: str):
         in_grad_placements=(sel, sel, rows_grad) + (w_grad,) * len(weights),
         device_mesh=mesh, redistribute_inputs=True)(
         dispatch, combine, xg, *weights)
+
+
+# --------------------------------------------------------------------------- #
+# dropless dispatch
+# --------------------------------------------------------------------------- #
+
+
+def route_dropless(moe: MoE, xf, spec: MoESpec):
+    """xf [N, D] -> (weights [N, k] float32, experts [N, k]): the top-k of
+    the float32 router's softmax over every expert, the lower index first
+    among equal probabilities, as the softmax gives them."""
+    probs = torch.softmax(xf.float() @ moe.router, dim=-1)
+    return _top_k(probs, spec.top_k)
+
+
+def expert_products(rows, ends, w):
+    """rows [R, d_in] sorted by expert, expert e's block ending at row
+    ``ends[e]``; w [E, d_in, d_out] -> [R, d_out], each block times its
+    expert's matrix.  Grouped calls on the card in bfloat16 (the ends stay
+    on the device); elsewhere :func:`expert_loop`."""
+    if rows.is_cuda and rows.dtype == torch.bfloat16:
+        return torch._grouped_mm(rows, w, offs=ends.to(torch.int32))
+    return expert_loop(rows, ends, w)
+
+
+def expert_loop(rows, ends, w):
+    """:func:`expert_products` as a loop over the experts, one product a
+    block: the plain version, which reads the ends on the host."""
+    out = rows.new_empty((rows.shape[0], w.shape[-1]))
+    lo = 0
+    for e, hi in enumerate(ends.tolist()):
+        out[lo:hi] = rows[lo:hi] @ w[e]
+        lo = hi
+    return out
+
+
+def expert_ffn(moe: MoE, rows, ends, mlp_type: str):
+    """The experts' FFN on ``rows`` sorted by expert (:func:`expert_products`),
+    with the dense MLP's roundings."""
+    if mlp_type == "swiglu":
+        gate = expert_products(rows, ends, moe.w_gate)
+        up = expert_products(rows, ends, moe.w_up)
+        h = F.silu(gate.float()).to(rows.dtype) * up
+    else:
+        h = F.gelu(expert_products(rows, ends, moe.w_up).float(),
+                   approximate="tanh").to(rows.dtype)
+    return expert_products(h, ends, moe.w_down)
+
+
+def dropless_ffn(moe: MoE, x, spec: MoESpec, mlp_type: str):
+    """x [B, S, D] -> [B, S, D]: every token's top-k choices, none dropped
+    (module docstring).  The choices are sorted by expert (token order
+    within an expert) and each expert's block ends where
+    ``searchsorted`` puts it, so nothing waits on the card."""
+    if is_dtensor(x):
+        raise NotImplementedError("the dropless MoE takes no DTensor: the "
+                                  "sharded step dispatches by GShard")
+    B, S, D = x.shape
+    k, E = spec.top_k, spec.n_experts
+    xf = x.reshape(B * S, D)
+    top_p, top_i = route_dropless(moe, xf, spec)
+    choice = top_i.reshape(-1)
+    order = torch.sort(choice, stable=True)[1]
+    ends = torch.searchsorted(choice[order], torch.arange(E, device=x.device),
+                              right=True)
+    y = expert_ffn(moe, xf.index_select(0, order // k), ends, mlp_type)
+    y = y.float() * top_p.reshape(-1).index_select(0, order)[:, None]
+    back = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=x.device))
+    out = y.index_select(0, back).view(B * S, k, D).sum(1)
+    return out.to(x.dtype).view(B, S, D)

@@ -26,6 +26,11 @@ On the chunked path the conv, the D skip, the ``silu(z)`` gate, the cast
 to the model's dtype and ``out_proj`` stay outside the scan, as in the
 reference.  Decode steps the recurrence once in plain PyTorch, its conv
 state carried.
+
+With ``SSMSpec.inner_norm`` (Jamba's mixer) dt's low-rank input, B and C
+each pass an RMS norm with weights (``dt_norm``, ``b_norm``, ``c_norm``)
+right after ``x_proj``, on all three paths (:func:`_inner_norms`): plain
+PyTorch operations before ``dt_w`` and the scan.
 """
 from __future__ import annotations
 
@@ -42,17 +47,19 @@ from repro_torch.kernels import mamba_scan as ms
 from repro_torch.sharding.ctx import (gathered, is_dtensor, project, shard,
                                      shards, sum_partials, unflatten)
 
-from .layers import const_param, dtype_of, normal_param
+from .layers import const_param, dtype_of, normal_param, rmsnorm
 
 
 class Mamba(nn.Module):
     """The reference's leaves: ``in_proj`` [D, 2 di], the depthwise
     ``conv_w`` [di, kw] and ``conv_b``, ``x_proj`` [di, dt_rank + 2N],
     ``dt_w`` [dt_rank, di] and ``dt_b``, ``a_log`` [di, N] (S4D-real, float32),
-    ``d_skip`` [di] (ones, float32) and ``out_proj`` [di, D]."""
+    ``d_skip`` [di] (ones, float32) and ``out_proj`` [di, D]; with
+    ``spec.inner_norm`` also the RMS norms' weights ``dt_norm`` [dt_rank],
+    ``b_norm`` and ``c_norm`` [N] (ones) and their epsilon ``eps``."""
 
     def __init__(self, d_model: int, spec: SSMSpec, dtype, *, generator,
-                 device):
+                 device, eps: float = 1e-6):
         super().__init__()
         di = spec.expand * d_model
         dtr = spec.resolved_dt_rank(d_model)
@@ -70,6 +77,20 @@ class Mamba(nn.Module):
                                   requires_grad=False)
         self.d_skip = const_param((di,), 1.0, torch.float32, device)
         self.out_proj = normal_param((di, d_model), dtype, **g)
+        if spec.inner_norm:
+            self.eps = eps
+            self.dt_norm = const_param((dtr,), 1.0, dtype, device)
+            self.b_norm = const_param((N,), 1.0, dtype, device)
+            self.c_norm = const_param((N,), 1.0, dtype, device)
+
+
+def _inner_norms(m: Mamba, spec: SSMSpec, dt_raw, b_ssm, c_ssm):
+    """dt's low-rank input, B and C as the scan takes them: unchanged, or
+    each through its RMS norm under ``spec.inner_norm``."""
+    if not spec.inner_norm:
+        return dt_raw, b_ssm, c_ssm
+    return (rmsnorm(dt_raw, m.dt_norm, m.eps), rmsnorm(b_ssm, m.b_norm, m.eps),
+            rmsnorm(c_ssm, m.c_norm, m.eps))
 
 
 def causal_conv(x, w, b, conv_state=None):
@@ -178,7 +199,8 @@ def _ssm_inputs(m: Mamba, x, spec: SSMSpec, conv_state=None):
     # partial sums are reduced before dt_b (split like the channels) is
     # added to their product with dt_w
     proj = sum_partials(xc @ m.x_proj)
-    dt_raw, b_ssm, c_ssm = proj.split([dtr, N, N], dim=-1)
+    dt_raw, b_ssm, c_ssm = _inner_norms(m, spec,
+                                        *proj.split([dtr, N, N], dim=-1))
     # softplus: the reference's logaddexp(x, 0); torch's thresholds at 20,
     # where the two differ by less than 2e-9
     dt = softplus_on_shards((dt_raw @ m.dt_w).float() + m.dt_b.float())
@@ -309,12 +331,14 @@ def scan_on_shards(xc, dt, b_ssm, c_ssm, a, **kw):
 def _forward_kernels(m: Mamba, x, spec: SSMSpec):
     """The prefill through the block's two kernels: in_proj, the conv
     kernel on its first half in place, x_proj, dt's product, the scan's
-    second entry (z, b and c read in place), out_proj."""
+    second entry (z, b and c read in place; b and c contiguous after
+    the inner norms), out_proj."""
     N = spec.d_state
     dtr = spec.resolved_dt_rank(x.shape[-1])
     xr, z = (x @ m.in_proj).chunk(2, dim=-1)
     xc = ms.causal_conv_silu(xr, m.conv_w, m.conv_b)
-    dt_raw, b_ssm, c_ssm = (xc @ m.x_proj).split([dtr, N, N], dim=-1)
+    dt_raw, b_ssm, c_ssm = _inner_norms(
+        m, spec, *(xc @ m.x_proj).split([dtr, N, N], dim=-1))
     y = ms.selective_scan_fused(dt_raw @ m.dt_w, m.dt_b, xc, z, b_ssm, c_ssm,
                                 m.a_log, m.d_skip)
     return y @ m.out_proj

@@ -8,7 +8,11 @@ order instead: group g, period position p is layer ``g * period + p``, and
 the ``n_tail`` tail layers follow with ``layer_kind(p)`` of their own index
 p.  So layer i always has period position ``i % period``, which decides its
 mixer (``layer_kind``: attention, local attention or mamba) and its FFN
-(``ffn_kind``: dense, MoE, or MoE with arctic's dense residual).
+(``ffn_kind``: dense, MoE, or MoE with arctic's dense residual).  A
+hybrid's attention layer sits at ``cfg.attn_offset`` of its period (0, the
+first, unless the configuration says otherwise; Jamba's is 4), and with
+``cfg.pos_emb == "none"`` its q and k enter attention and the cache
+unrotated.
 ``remat="full"`` checkpoints each layer in a train step (:func:`remat`);
 the serving path runs under ``torch.no_grad()``, where it does nothing.
 """
@@ -90,7 +94,7 @@ class Layer(nn.Module):
         self.ln2 = Norm(cfg.d_model, cfg.norm_type, cfg.norm_eps, dt, device)
         if self.kind == "mamba":
             self.ssm = Mamba(cfg.d_model, cfg.ssm, dt, generator=generator,
-                             device=device)
+                             device=device, eps=cfg.norm_eps)
         else:
             self.attn = Attention(cfg, dt, generator=generator,
                                   device=device)
@@ -140,10 +144,22 @@ def _rope_theta(cfg: ModelConfig, kind: str) -> float:
     return cfg.rope_theta
 
 
+def _rotate(cfg: ModelConfig, kind: str, q, k, positions):
+    """q and k rotated by RoPE at ``positions``, or as they are under
+    ``pos_emb="none"``."""
+    if cfg.pos_emb == "none":
+        return q, k
+    if cfg.pos_emb != "rope":
+        raise ValueError(f"unknown pos_emb {cfg.pos_emb!r}: rope or none")
+    theta = _rope_theta(cfg, kind)
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+
+
 def _apply_ffn(cfg: ModelConfig, layer: Layer, h):
     if layer.ffn_kind == "dense":
         return layer.mlp(h)
-    out = moe_ffn(layer.moe, h, cfg.moe, cfg.mlp_type)
+    with span("model.moe"):
+        out = moe_ffn(layer.moe, h, cfg.moe, cfg.mlp_type)
     if layer.ffn_kind == "moe+dense":
         out = out + layer.mlp(h)
     return out
@@ -159,9 +175,7 @@ def _apply_layer(cfg: ModelConfig, layer: Layer, x, positions, impl,
     else:
         B, S, _ = h.shape
         q, k, v = layer.attn.qkv(h)
-        theta = _rope_theta(cfg, layer.kind)
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
+        q, k = _rotate(cfg, layer.kind, q, k, positions)
         q = shard(q, "attn_q")
         k = shard(k, "attn_kv")
         v = shard(v, "attn_kv")
@@ -356,10 +370,8 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, lc, x, pos: int,
         return x + _apply_ffn(cfg, layer, layer.ln2(x))
     B = x.shape[0]
     q, k, v = layer.attn.qkv(h)
-    theta = _rope_theta(cfg, layer.kind)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, posv, theta)
-    k = apply_rope(k, posv, theta)
+    q, k = _rotate(cfg, layer.kind, q, k, posv)
     if layer.kind == "local":
         w = cfg.sliding_window
         kc, vc = ring_insert(lc["k"], lc["v"], k, v, pos, w)

@@ -31,7 +31,8 @@ The sites and their names (readers and PERF.md use them):
   ``engine.schedule``, ``engine.allocate``, ``engine.run``,
   ``engine.release``, ``engine.bind``;
 * the prefill step: ``model.embed``, ``model.layer`` (each layer),
-  ``model.final_norm``, ``model.head``.
+  ``model.moe`` (each MoE FFN, inside its layer), ``model.final_norm``,
+  ``model.head``.
 
 Under the profiler a span costs ~14 us of host time on an H100 machine's
 host (the profiler's own recording of the range), so the sites stop at
